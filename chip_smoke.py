@@ -44,6 +44,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# exp on the special-function units: 16 a clock per SM x 132 SMs x ~1.83 GHz
+EXP_PER_S = 3.9e12
 
 N_DOCS = 16384
 N_CHUNKS = 8
@@ -75,8 +77,11 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 15) -> float:
-    """CUDA-event median of `fn` over `reps` launches after one warm-up."""
+def median_ms(fn, reps: int = 15, inner: int = 10) -> float:
+    """CUDA-event median over `reps` samples, after one warm-up, of the
+    mean time of `inner` back-to-back calls of `fn`. With inner > 1 the
+    host's launch work overlaps the card's, so a sample is device time;
+    inner = 1 adds the host's time to reach the launch."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -84,10 +89,11 @@ def median_ms(fn, reps: int = 15) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -148,6 +154,9 @@ def check_knn(knn_topk, reference_knn_topk, gen) -> dict:
     log(f"  knn_topk N={N_INDEX} d={DIM} Q={N_QUERIES} k={K}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, torch.topk(q @ x.T) {library_ms:.4f} ms, "
         f"bound {max(byte_ms, op_ms):.4f} ms")
+    log(f"  the same, one call per sample (host time to the launch included): kernel "
+        f"{median_ms(lambda: knn_topk(x, valid, q, K, metric='ip'), inner=1):.4f} ms, "
+        f"torch.topk(q @ x.T) {median_ms(lambda: torch.topk(q @ x.T, K, dim=1), inner=1):.4f} ms")
     for qn, k in ((1, 6), (64, 128)):
         qq = torch.randn((qn, DIM), device="cuda", generator=gen)
         log(f"  knn_topk Q={qn} k={k}: kernel "
@@ -190,6 +199,15 @@ def check_flash(flash_attention, reference_attention, gen) -> dict:
     err = live_rows_err(out, ref, mask)
     check(err <= 2e-2, f"flash_attention bf16 [{b},{h},{l},{d}]: error {err}")
     log(f"  flash_attention bf16 [{b},{h},{l},{d}] ragged: max |err| on live rows {err:.3g}  ok")
+    # causal in bf16 at the encoder's width, ragged keys
+    qc, kc, vc, mc = q[:2], k[:2], v[:2], mask[:2]
+    e = live_rows_err(
+        flash_attention(qc, kc, vc, mc, causal=True),
+        reference_attention(qc, kc, vc, mc, scale, True), mc,
+    )
+    check(e <= 2e-2, f"flash_attention bf16 causal [2,{h},{l},{d}]: error {e}")
+    log(f"  flash_attention bf16 [2,{h},{l},{d}] causal: max |err| on live rows {e:.3g}  ok")
+    err = max(err, e)
     # a small causal case and a non-causal one in f32
     qf, kf, vf = (
         torch.randn((2, 3, 300, d), device="cuda", generator=gen) for _ in range(3)
@@ -210,9 +228,15 @@ def check_flash(flash_attention, reference_attention, gen) -> dict:
     nbytes = 4 * q.numel() * 2 + mask.numel() * 4
     flops = 4.0 * b * h * l * l * d
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    # one exp per score on the special-function units: 16 a clock per SM
+    exp_floor_ms = b * h * l * l / EXP_PER_S * 1e3
     log(f"  flash_attention [{b},{h},{l},{d}] bf16: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-        f"bound {max(byte_ms, op_ms):.4f} ms")
+        f"bound {max(byte_ms, op_ms):.4f} ms, exp floor {exp_floor_ms:.4f} ms")
+    log(f"  the same, one call per sample (host time to the launch included): kernel "
+        f"{median_ms(lambda: flash_attention(q, k, v, mask), inner=1):.4f} ms, "
+        f"scaled_dot_product_attention "
+        f"{median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), inner=1):.4f} ms")
     # the ingest shape (2048 docs at L = 64), where the encoder takes the
     # dense path (the plain version) because the flash gate is L > 256
     qs, ks, vs = (

@@ -7,23 +7,39 @@
 // a zero denominator replaced by 1. The [L, L] score matrix never reaches
 // device memory.
 //
-// What bounds it on this card: at the encoder's shapes (D = 32, L <= 512)
-// attention does 4*B*H*L*L*D FLOPs against 4*B*H*L*D*2 bytes of q, k, v
-// and o, about 128 FLOPs per byte at L = 512, so the bf16 bound is close
-// to balanced between memory and tensor cores, and in practice the
-// softmax (one exp per score on the special-function units) and the
-// register traffic around the products decide. Two kernels:
+// What bounds it on this card, at the encoder's long-document shape
+// [64, 12, 512, 32] bf16: the bytes of q, k, v and o take 0.030 ms at
+// 3.35 TB/s; the 4 B H L^2 D products 0.026 ms at 989 TFLOP/s; the one
+// exp per score (B H L^2 = 201 M) about 0.052 ms on the special-function
+// units (16 a clock per SM). So the exp unit and the instructions around
+// each score decide, not memory or the tensor cores. Two kernels:
 //
-//   flash_fwd_bf16 (bf16, the encoder's path): tensor cores through
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate). A block owns 64 query
-//     rows of one (batch, head), 16 per warp; q stays in registers as mma
-//     A fragments for the whole kv loop. Per 64-key tile staged in shared
-//     memory (k as loaded, v transposed so the PV B fragments are 32-bit
-//     reads), S = q k^T lands in registers in the mma C layout, the
-//     online softmax runs on those registers (row max across the 4 lanes
-//     that share a row by shuffles), and P, rounded to bf16, is fed back as
-//     the A operand of P v without touching shared memory. Head dim stays
-//     at its real size (no padding to 128 lanes as on the TPU).
+//   flash_fwd_bf16 (bf16, the encoder's path). A block owns 128 query rows
+//     of one (batch, head): two consumer warpgroups of 64 rows (wgmma takes
+//     M = 64) and one producer warp.
+//     - Bytes: the producer loads q once and each 64-key tile of k and v
+//       by TMA into a ring of STAGES stages, one "full" mbarrier per stage
+//       that the consumers wait on and one "empty" mbarrier that each
+//       consumer warp arrives on when done, so copies run ahead of the
+//       math. Tensor maps are 3-D [B H, L, D]: rows past L read as zeros,
+//       never as the next head's. 128 query rows per block halve the L2
+//       re-reads of k and v against 64, and the q tiles of one head are
+//       neighbouring blocks, so its k and v come from HBM once.
+//     - Tensor cores: S = q k^T is wgmma m64n64k16 with both operands in
+//       shared memory, K-major as stored ([row][d]); O += P v is wgmma
+//       m64nDk16 with P from registers and v's tile as stored ([key][d]),
+//       which is MN-major for this product (the transposed-B flag), so v
+//       is never transposed by hand. The swizzle is the row width (32, 64
+//       or 128 bytes for D = 16, 32, 64) in both the tensor maps and the
+//       wgmma descriptors.
+//     - Exp unit: the softmax runs on the accumulator registers in log2
+//       units: scale and mask are one FFMA per score (s * scale * log2(e)
+//       plus the stage's mask addend, written to shared memory once per
+//       tile by the producer), the row max is shuffled across the 4 lanes
+//       of a row, and each score takes one ex2 (exp2f's instruction). P,
+//       rounded to bf16, goes straight from the score registers into the
+//       A operand of P v (the accumulator layout of two neighbouring
+//       8-column blocks is the A layout of one 16-key step).
 //   flash_fwd_f32 (f32): the simple design, one thread per query row on
 //     the CUDA cores with q, the accumulator and the softmax state in
 //     registers, 32-key tiles in shared memory read as broadcasts. It
@@ -32,9 +48,11 @@
 // The sequential kv grid axis of the TPU kernel becomes the loop over kv
 // tiles inside a block. Keys past the end of the sequence take no part;
 // keys that the kv mask drops get -1e30 added and causally hidden keys are
-// set to -1e30, so a row with no live key averages v over its keys as the
-// reference does (finite, never read by pooling).
+// set to -1e30 (times log2(e) in the bf16 kernel), so a row with no live
+// key averages v over its keys as the reference does (finite, never read
+// by pooling).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -138,23 +156,171 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// ---- bf16: tensor cores (mma.sync m16n8k16) -------------------------------
+// ---- bf16: wgmma, TMA ring, exp2 softmax -----------------------------------
 
-constexpr int TQ = 64;   // query rows per block: 4 warps x 16
-constexpr int TK = 64;   // keys per shared-memory tile
-constexpr int TC_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF_LOG2 = NEG_INF * LOG2E;  // a masked score in log2 units
+constexpr int WG_ROWS = 64;  // query rows per consumer warpgroup (wgmma M)
+constexpr int NWG = 2;       // consumer warpgroups per block
+constexpr int BM = NWG * WG_ROWS;  // query rows per block
+constexpr int BN = 64;       // keys per kv tile
+constexpr int STAGES = 3;    // kv tiles in the ring
 
-// D += A B for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16 (col),
-// D 16x8 f32. Lane (g = lane / 4, t = lane % 4) holds A rows g, g + 8 at
-// columns 2t, 2t + 1 (+8); B column g at rows 2t, 2t + 1 (+8); D rows g,
-// g + 8 at columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Shared memory of one block, byte offsets from a 1024-byte aligned base
+// (every tile starts on a whole swizzle atom): q, the k and v rings, the
+// mask addends of each stage, then the mbarriers (full[STAGES],
+// empty[STAGES], q).
+template <int D>
+struct Smem {
+    static constexpr int Q = 0;
+    static constexpr int K = Q + BM * D * 2;
+    static constexpr int V = K + STAGES * BN * D * 2;
+    static constexpr int MASK = V + STAGES * BN * D * 2;
+    static constexpr int BAR = MASK + STAGES * BN * 4;
+    static constexpr int ALLOC = BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
+// its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle, which is the row width of a
+// [row][D] bf16 tile: 128, 64 or 32 bytes for D = 64, 32, 16 (layout types
+// 1, 2, 3), as CU_TENSOR_MAP_SWIZZLE_{128,64,32}B wrote it
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+    constexpr uint64_t layout = D == 64 ? 1 : (D == 32 ? 2 : 3);
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// pins the registers of an accumulator at this point of the program, so
+// the compiler moves no read or write of them across a wgmma or its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16: A [64 x 16] and B [16 x 64] both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B, m64n16k16: A [64 x 16] from registers, B [16 x 16] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n32k16: A [64 x 16] from registers, B [16 x 32] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k16: A [64 x 16] from registers, B [16 x 64] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x as one ex2 on the special-function unit: exp2f's instruction, with
+// results below 2^-126 flushed to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // two floats as one bf16 pair, `lo` in the low half (the lower column)
@@ -163,143 +329,181 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// grid: (B*H, ceil(Lq / TQ)); block: TC_THREADS. All row starts of q, k, v
-// and o are 16-byte aligned (D % 8 == 0, base pointers checked by the
-// wrapper).
+// grid: B * H * q_tiles blocks, the q tiles of one (batch, head) adjacent
+// so that its k and v stay in L2; block: NWG consumer warpgroups, then one
+// producer warp. Rows past Lq read as zeros and are never stored. Lane (g = lane / 4, t = lane % 4) of warp w of a consumer
+// warpgroup holds the accumulator rows 16 w + g and 16 w + g + 8 at
+// columns 8 n + 2 t and 8 n + 2 t + 1 (registers 4 n .. 4 n + 3).
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ kv_mask,
-               __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, float sm_scale,
-               int causal) {
-    constexpr int KS = D / 16;      // k-steps of q k^T
-    constexpr int DT = D / 8;       // n-tiles of the output
-    constexpr int NT = TK / 8;      // n-tiles of the scores
-    constexpr int CH = D / 8;       // 16-byte chunks per k / v row
-    constexpr int KSTR = D + 8;     // Ks row stride (bf16): conflict-free B reads
-    constexpr int VSTR = TK + 8;    // Vt row stride (bf16)
-    __shared__ __align__(16) __nv_bfloat16 Ks[TK * KSTR];  // [key][d]
-    __shared__ __align__(16) __nv_bfloat16 Vt[D * VSTR];   // [d][key]
-    __shared__ float Ms[TK];
+__global__ void __launch_bounds__(NWG * 128 + 32, 2)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const int32_t* __restrict__ kv_mask,
+               __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, int q_tiles,
+               float scale_log2, int causal) {
+    using S = Smem<D>;
+    constexpr uint32_t ROW = D * 2;  // bytes of one q / k / v row
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + S::Q);
+    __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + S::K);
+    __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + S::V);
+    float* smask = reinterpret_cast<float*>(smem + S::MASK);
+    const uint32_t bar_full = smem_u32(smem + S::BAR);
+    const uint32_t bar_empty = bar_full + 8 * STAGES;
+    const uint32_t bar_q = bar_empty + 8 * STAGES;
 
+    const int bh = blockIdx.x / q_tiles;
+    const int q0 = (blockIdx.x - bh * q_tiles) * BM;
+    // causal: keys after the block's last query row are masked for every
+    // row of the block, and add exactly 0 to any row with a live key
+    const int kend = causal ? min(Lk, q0 + BM) : Lk;
+    const int n_tiles = (kend + BN - 1) / BN;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int bh = blockIdx.x;
-    const int b = bh / H;
-    const int row0 = blockIdx.y * TQ + warp * 16 + g;  // this lane's rows: row0, row0 + 8
 
-    // q as A fragments, kept in registers for the whole kv loop
-    const __nv_bfloat16* qb = q + (size_t)bh * Lq * D;
-    uint32_t qa[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int row = row0 + 8 * (r & 1);
-            const int col = ks * 16 + 2 * t + (r >> 1) * 8;
-            qa[ks][r] = row < Lq ? ld32(qb + (size_t)row * D + col) : 0u;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(bar_full + 8 * s, 32);        // every producer lane
+            mbar_init(bar_empty + 8 * s, NWG * 4);  // every consumer warp
         }
+        mbar_init(bar_q, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == NWG * 4) {
+        // producer: q once, then per kv tile its k and v (TMA) and its mask
+        // addends in log2 units, up to STAGES tiles ahead of the consumers
+        const int32_t* mb = kv_mask + (size_t)(bh / H) * Lk;
+        if (lane == 0) {
+            mbar_arrive_expect_tx(bar_q, BM * ROW);
+            tma_load_3d(smem_u32(sq), &tm_q, bar_q, 0, q0, bh);
+        }
+        for (int j = 0; j < n_tiles; ++j) {
+            const int s = j % STAGES;
+            if (j >= STAGES) mbar_wait(bar_empty + 8 * s, (j / STAGES - 1) & 1);
+            const int k0 = j * BN;
+            for (int c = lane; c < BN; c += 32) {
+                const int key = k0 + c;
+                smask[s * BN + c] = key < Lk ? (1.f - (float)mb[key]) * NEG_INF_LOG2 : -INFINITY;
+            }
+            if (lane == 0) {
+                mbar_arrive_expect_tx(bar_full + 8 * s, 2 * BN * ROW);
+                tma_load_3d(smem_u32(sk + s * BN * D), &tm_k, bar_full + 8 * s, 0, k0, bh);
+                tma_load_3d(smem_u32(sv + s * BN * D), &tm_v, bar_full + 8 * s, 0, k0, bh);
+            } else {
+                mbar_arrive(bar_full + 8 * s);
+            }
+        }
+        return;
     }
 
-    float m[2] = {NEG_INF, NEG_INF};
-    float l[2] = {0.f, 0.f};  // this lane's partial row sums
-    float acc[DT][4];
+    // consumer warpgroup wg: query rows q0 + 64 wg .. q0 + 64 wg + 63
+    const int wg = warp >> 2;
+    const int t = lane & 3;
+    const int warp_row0 = q0 + wg * WG_ROWS + (warp & 3) * 16;
+    const int row_a = warp_row0 + (lane >> 2);  // and row_a + 8
+    // K-major operands (q, k): 8-row groups ROW * 8 bytes apart; a k-step of
+    // 16 columns starts 32 bytes further into the swizzled rows
+    const uint64_t dq = smem_desc<D>(sq + wg * WG_ROWS * D, 16, 8 * ROW);
+
+    float acc[D / 2];
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // finite after the first tile
+    float l[2] = {0.f, 0.f};              // this lane's partial row sums
+    mbar_wait(bar_q, 0);
 
-    const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
-    const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
-    const int32_t* mb = kv_mask + (size_t)b * Lk;
-    const int kend = causal ? min(Lk, (int)(blockIdx.y + 1) * TQ) : Lk;
+    for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const int k0 = j * BN;
+        mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
 
-    for (int k0 = 0; k0 < kend; k0 += TK) {
-        __syncthreads();  // previous tile fully consumed
-        // neighbouring lanes take neighbouring keys: the transposed v
-        // stores then hit distinct shared-memory words
-        for (int e = threadIdx.x; e < TK * CH; e += TC_THREADS) {
-            const int j = e % TK;
-            const int c = (e / TK) * 8;
-            uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-            uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-            if (k0 + j < Lk) {
-                kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + j) * D + c);
-                vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + j) * D + c);
+        // S = q k^T, [64 x BN] per warpgroup
+        float sc[BN / 2];
+        const uint64_t dk = smem_desc<D>(sk + s * BN * D, 16, 8 * ROW);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(sc, dq + 2 * ks, dk + 2 * ks, ks);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // scale and mask: one FFMA per score, in log2 units
+        const float2* madd = reinterpret_cast<const float2*>(smask + s * BN);
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+            const float2 a = madd[4 * n + t];
+            sc[4 * n + 0] = fmaf(sc[4 * n + 0], scale_log2, a.x);
+            sc[4 * n + 1] = fmaf(sc[4 * n + 1], scale_log2, a.y);
+            sc[4 * n + 2] = fmaf(sc[4 * n + 2], scale_log2, a.x);
+            sc[4 * n + 3] = fmaf(sc[4 * n + 3], scale_log2, a.y);
+        }
+        if (causal && k0 + BN - 1 > warp_row0) {
+#pragma unroll
+            for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int key = k0 + 8 * n + 2 * t + (e & 1);
+                    if (key > row_a + 8 * (e >> 1) && key < Lk) sc[4 * n + e] = NEG_INF_LOG2;
+                }
             }
-            *reinterpret_cast<uint4*>(Ks + j * KSTR + c) = kv;
-            const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-            for (int u = 0; u < 8; ++u) Vt[(c + u) * VSTR + j] = ve[u];
         }
-        for (int j = threadIdx.x; j < TK; j += TC_THREADS) {
-            const int kj = k0 + j;
-            Ms[j] = kj < Lk ? (1.f - (float)mb[kj]) * NEG_INF : -INFINITY;
-        }
-        __syncthreads();
-
-        // S = q k^T, [16 rows x 64 keys] per warp in mma C layout
-        float s[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-                const __nv_bfloat16* kr = Ks + (nt * 8 + g) * KSTR + ks * 16 + 2 * t;
-                mma_bf16(s[nt], qa[ks], ld32(kr), ld32(kr + 8));
-            }
-        }
-        // scale, mask, running max (the 4 lanes of a row share it)
+        // running max over the row (its 4 lanes share it), rescale
         float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int jj = nt * 8 + 2 * t + (e & 1);
-                const int kj = k0 + jj;
-                float val = s[nt][e] * sm_scale + Ms[jj];  // -inf past the end
-                if (causal && kj > row0 + 8 * (e >> 1) && kj < Lk) val = NEG_INF;
-                s[nt][e] = val;
-                mx[e >> 1] = fmaxf(mx[e >> 1], val);
-            }
+        for (int n = 0; n < BN / 8; ++n) {
+            mx[0] = fmaxf(mx[0], fmaxf(sc[4 * n + 0], sc[4 * n + 1]));
+            mx[1] = fmaxf(mx[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
         }
+        float alpha[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
             mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
             mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-            const float alpha = expf(m[i] - mx[i]);
+            alpha[i] = exp2_ftz(m[i] - mx[i]);
             m[i] = mx[i];
-            l[i] *= alpha;
-#pragma unroll
-            for (int dt = 0; dt < DT; ++dt) {
-                acc[dt][2 * i] *= alpha;
-                acc[dt][2 * i + 1] *= alpha;
-            }
+            l[i] *= alpha[i];
         }
-        // P = exp(S - m) as bf16 A fragments (C layout of two neighbouring
-        // n-tiles = A layout of one 16-key step), then acc += P v
+        // P = 2^(S - m) as bf16 A fragments: accumulator blocks 2 kk and
+        // 2 kk + 1 are the A fragment of key step kk
+        uint32_t pa[BN / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
             float p[8];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
 #pragma unroll
-                for (int e = 0; e < 4; ++e) p[4 * h + e] = expf(s[2 * kk + h][e] - m[e >> 1]);
+                for (int e = 0; e < 4; ++e)
+                    p[4 * h + e] = exp2_ftz(sc[4 * (2 * kk + h) + e] - m[e >> 1]);
             }
-            l[0] += p[0] + p[1] + p[4] + p[5];
-            l[1] += p[2] + p[3] + p[6] + p[7];
-            const uint32_t pa[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
-                                    pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
-#pragma unroll
-            for (int dt = 0; dt < DT; ++dt) {
-                const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VSTR + kk * 16 + 2 * t;
-                mma_bf16(acc[dt], pa, ld32(vr), ld32(vr + 8));
-            }
+            l[0] += (p[0] + p[1]) + (p[4] + p[5]);
+            l[1] += (p[2] + p[3]) + (p[6] + p[7]);
+            pa[kk][0] = pack_bf16(p[0], p[1]);
+            pa[kk][1] = pack_bf16(p[2], p[3]);
+            pa[kk][2] = pack_bf16(p[4], p[5]);
+            pa[kk][3] = pack_bf16(p[6], p[7]);
         }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            acc[4 * n + 0] *= alpha[0];
+            acc[4 * n + 1] *= alpha[0];
+            acc[4 * n + 2] *= alpha[1];
+            acc[4 * n + 3] *= alpha[1];
+        }
+
+        // O += P v. v's tile is [key][d] as stored: MN-major for this
+        // product, 8-key groups ROW * 8 bytes apart, a k-step of 16 keys
+        // 16 rows further
+        const uint64_t dv = smem_desc<D>(sv + s * BN * D, 8 * ROW, 8 * ROW);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, pa[kk], dv + ((16 * ROW) >> 4) * kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
     }
 
     __nv_bfloat16* ob = o + (size_t)bh * Lq * D;
@@ -308,15 +512,81 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-        const int row = row0 + 8 * i;
+        const int row = row_a + 8 * i;
         if (row < Lq) {
 #pragma unroll
-            for (int dt = 0; dt < DT; ++dt) {
-                *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + dt * 8 + 2 * t) =
-                    pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
+            for (int n = 0; n < D / 8; ++n) {
+                *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + 8 * n + 2 * t) =
+                    pack_bf16(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
             }
         }
     }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// [B H, L, D] bf16 as a 3-D tensor map with boxes of `rows` rows, swizzled
+// by the row width; rows past L read as zeros
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, int bh, int L, int rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int32_t* mask,
+                        void* o, int B, int H, int Lq, int Lk, float sm_scale, int causal,
+                        cudaStream_t stream) {
+    CUtensorMap tq, tk, tv;
+    if (!make_map<D>(&tq, q, B * H, Lq, BM) || !make_map<D>(&tk, k, B * H, Lk, BN) ||
+        !make_map<D>(&tv, v, B * H, Lk, BN)) {
+        return cudaErrorInvalidValue;
+    }
+    constexpr int smem = Smem<D>::ALLOC;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+    }
+    const int q_tiles = (Lq + BM - 1) / BM;
+    flash_fwd_bf16<D><<<B * H * q_tiles, NWG * 128 + 32, smem, stream>>>(
+        tq, tk, tv, mask, static_cast<__nv_bfloat16*>(o), H, Lq, Lk, q_tiles, sm_scale * LOG2E,
+        causal);
+    return cudaGetLastError();
 }
 
 template <int D>
@@ -324,19 +594,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
                    void* o, int B, int H, int Lq, int Lk, float sm_scale, int causal,
                    int is_bf16, cudaStream_t stream) {
     const int32_t* mask = static_cast<const int32_t*>(kv_mask);
-    if (is_bf16) {
-        dim3 grid(B * H, (Lq + TQ - 1) / TQ);
-        flash_fwd_bf16<D><<<grid, TC_THREADS, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), H,
-            Lq, Lk, sm_scale, causal);
-    } else {
-        dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-        flash_fwd_f32<D><<<grid, BQ, 0, stream>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), mask, static_cast<float*>(o), H, Lq, Lk,
-            sm_scale, causal);
-    }
+    if (is_bf16) return launch_bf16<D>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, stream);
+    dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+    flash_fwd_f32<D><<<grid, BQ, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, static_cast<float*>(o), H, Lq, Lk,
+        sm_scale, causal);
     return cudaGetLastError();
 }
 

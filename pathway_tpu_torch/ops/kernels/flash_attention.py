@@ -3,7 +3,8 @@
 Counterpart of pathway_tpu/ops/kernels/flash_attention.py. The kernel
 (csrc/flash_attention.cu) runs online-softmax attention with f32 softmax
 state and never writes the [L, L] scores; bf16 inputs go through the
-tensor cores (mma.sync), f32 inputs through a simple CUDA-core kernel.
+tensor cores (wgmma, with k and v brought in by TMA), f32 inputs through
+a simple CUDA-core kernel.
 `reference_attention` is the
 plain version, the same function as the JAX package's
 `_reference_attention`; the wrapper takes it only for tensors on the CPU.

@@ -124,6 +124,11 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (3, 2, 300, 300, 32, torch.bfloat16, False),
         (2, 12, 512, 512, 32, torch.bfloat16, True),
         (4, 12, 512, 512, 32, torch.bfloat16, False),  # the encoder's shape
+        (2, 3, 77, 77, 16, torch.bfloat16, False),  # 32-byte swizzle
+        (2, 3, 77, 77, 64, torch.bfloat16, True),  # 128-byte swizzle
+        (1, 2, 40, 130, 32, torch.bfloat16, False),  # Lq != Lk, rows past Lq
+        (2, 3, 300, 300, 32, torch.bfloat16, True),  # Lq not a multiple of 128
+        (64, 12, 64, 64, 32, torch.bfloat16, False),  # the ingest shape
     ],
 )
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
