@@ -11,7 +11,9 @@ width with random weights from a seed:
   1. identify the card (nvidia-smi name and power limit, device properties);
   2. build the kernels (nvcc, sm_90a) and print the build time;
   3. knn_topk and flash_attention against their plain versions, with
-     CUDA-event medians of kernel, plain and library-call times;
+     CUDA-event medians of kernel, plain and library-call times (knn_topk
+     at the main path's Q = 32, k = 6 and at Q = 1 / k = 6, Q = 64 / k = 6,
+     Q = 64 / k = 128);
   4. main path: 16,384 bench-style docs ingested packed
      (FusedEmbedSearch.prepare_batch + dispatch_batch) and classic
      (embed_and_add), the index filled to 1,048,576 live rows on the device,
@@ -43,6 +45,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 # exp on the special-function units: 16 a clock per SM x 132 SMs x ~1.83 GHz
 EXP_PER_S = 3.9e12
@@ -141,27 +144,23 @@ def check_knn(knn_topk, reference_knn_topk, gen) -> dict:
                 knn_sets_agree(ks, ki, ps, pi)
                 max_err = max(max_err, err)
                 log(f"  knn_topk {metric:4s} Q={qn:2d} k={k:3d}: max |score err| {err:.3g}  ok")
-    # times at the main path's search shape: Q = 32 queries, k = 6, cos
-    # (which reaches the kernel as ip on normalised queries)
-    q = torch.randn((N_QUERIES, DIM), device="cuda", generator=gen)
-    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
-    ms = median_ms(lambda: knn_topk(x, valid, q, K, metric="ip"))
-    plain_ms = median_ms(lambda: reference_knn_topk(x, valid, q, K, metric="ip"))
-    library_ms = median_ms(lambda: torch.topk(q @ x.T, K, dim=1))
-    nbytes = x.numel() * 4 + valid.numel() + q.numel() * 4 + N_QUERIES * K * 8
-    flops = 2.0 * N_QUERIES * N_INDEX * DIM
-    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    log(f"  knn_topk N={N_INDEX} d={DIM} Q={N_QUERIES} k={K}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, torch.topk(q @ x.T) {library_ms:.4f} ms, "
-        f"bound {max(byte_ms, op_ms):.4f} ms")
+    # times at the main path's search shape (Q = 32 queries, k = 6, cos,
+    # which reaches the kernel as ip on normalised queries), then at one
+    # query, at Q = 64 with the same k (the score cost) and at the kernel's
+    # k limit (the selection cost). Three query draws, as many as earlier
+    # versions of this script took, so that the flash phase's inputs from
+    # `gen` stay the same.
+    q, q1, q64 = (
+        torch.randn((qn, DIM), device="cuda", generator=gen) for qn in (N_QUERIES, 1, 64)
+    )
+    shapes = []
+    for qq, k in ((q, K), (q1, 6), (q64, 6), (q64, 128)):
+        qq /= torch.linalg.vector_norm(qq, dim=1, keepdim=True)
+        shapes.append(time_knn(knn_topk, reference_knn_topk, x, valid, qq, k))
+    main = shapes[0]
     log(f"  the same, one call per sample (host time to the launch included): kernel "
         f"{median_ms(lambda: knn_topk(x, valid, q, K, metric='ip'), inner=1):.4f} ms, "
         f"torch.topk(q @ x.T) {median_ms(lambda: torch.topk(q @ x.T, K, dim=1), inner=1):.4f} ms")
-    for qn, k in ((1, 6), (64, 128)):
-        qq = torch.randn((qn, DIM), device="cuda", generator=gen)
-        log(f"  knn_topk Q={qn} k={k}: kernel "
-            f"{median_ms(lambda: knn_topk(x, valid, qq, k, metric='ip')):.4f} ms, plain "
-            f"{median_ms(lambda: reference_knn_topk(x, valid, qq, k, metric='ip')):.4f} ms")
     del x, valid
     return {
         "name": "knn_topk",
@@ -169,11 +168,39 @@ def check_knn(knn_topk, reference_knn_topk, gen) -> dict:
         "source": "pathway_tpu_torch/ops/kernels/csrc/knn_topk.cu",
         "replaces": "pathway_tpu/ops/kernels/knn_topk.py:21",
         "max_abs_err": max_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shapes": shapes[1:],
+    }
+
+
+def time_knn(knn_topk, reference_knn_topk, x, valid, q, k) -> dict:
+    """Kernel, plain and library-call times at one shape, and the bound:
+    each input read once and each output written once at 3.35 TB/s,
+    against the scores as the kernel computes them, three tf32 tensor-core
+    passes (3xTF32) at 495 TFLOP/s."""
+    qn = q.shape[0]
+    ms = median_ms(lambda: knn_topk(x, valid, q, k, metric="ip"))
+    plain_ms = median_ms(lambda: reference_knn_topk(x, valid, q, k, metric="ip"))
+    library_ms = median_ms(lambda: torch.topk(q @ x.T, k, dim=1))
+    nbytes = x.numel() * 4 + valid.numel() + q.numel() * 4 + qn * k * 8
+    flops = 3 * 2.0 * qn * x.shape[0] * x.shape[1]
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / TF32_FLOPS * 1e3
+    log(f"  knn_topk N={x.shape[0]} d={x.shape[1]} Q={qn} k={k}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, torch.topk(q @ x.T) {library_ms:.4f} ms, bound "
+        f"{max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}; 3 tf32 passes at 495 "
+        f"TFLOP/s {op_ms:.4f})")
+    return {
+        "Q": qn,
+        "k": k,
         "ms": ms,
         "plain_ms": plain_ms,
+        "library_ms": library_ms,
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-        "library_ms": library_ms,
     }
 
 

@@ -58,6 +58,8 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // JAX NEG_INF
@@ -179,79 +181,6 @@ struct Smem {
     static constexpr int BAR = MASK + STAGES * BN * 4;
     static constexpr int ALLOC = BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-                 : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
-// its bytes counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5}], [%2];"
-        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle, which is the row width of a
-// [row][D] bf16 tile: 128, 64 or 32 bytes for D = 64, 32, 16 (layout types
-// 1, 2, 3), as CU_TENSOR_MAP_SWIZZLE_{128,64,32}B wrote it
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-    constexpr uint64_t layout = D == 64 ? 1 : (D == 32 ? 2 : 3);
-    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-           ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// pins the registers of an accumulator at this point of the program, so
-// the compiler moves no read or write of them across a wgmma or its wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // d (+)= A B, m64n64k16: A [64 x 16] and B [16 x 64] both K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
@@ -405,7 +334,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int row_a = warp_row0 + (lane >> 2);  // and row_a + 8
     // K-major operands (q, k): 8-row groups ROW * 8 bytes apart; a k-step of
     // 16 columns starts 32 bytes further into the swizzled rows
-    const uint64_t dq = smem_desc<D>(sq + wg * WG_ROWS * D, 16, 8 * ROW);
+    const uint64_t dq = smem_desc<D * 2>(sq + wg * WG_ROWS * D, 16, 8 * ROW);
 
     float acc[D / 2];
 #pragma unroll
@@ -421,7 +350,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
         // S = q k^T, [64 x BN] per warpgroup
         float sc[BN / 2];
-        const uint64_t dk = smem_desc<D>(sk + s * BN * D, 16, 8 * ROW);
+        const uint64_t dk = smem_desc<D * 2>(sk + s * BN * D, 16, 8 * ROW);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(sc, dq + 2 * ks, dk + 2 * ks, ks);
@@ -495,7 +424,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         // O += P v. v's tile is [key][d] as stored: MN-major for this
         // product, 8-key groups ROW * 8 bytes apart, a k-step of 16 keys
         // 16 rows further
-        const uint64_t dv = smem_desc<D>(sv + s * BN * D, 8 * ROW, 8 * ROW);
+        const uint64_t dv = smem_desc<D * 2>(sv + s * BN * D, 8 * ROW, 8 * ROW);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
@@ -521,31 +450,6 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
             }
         }
     }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p)
-                   : nullptr;
-    }();
-    return fn;
 }
 
 // [B H, L, D] bf16 as a 3-D tensor map with boxes of `rows` rows, swizzled

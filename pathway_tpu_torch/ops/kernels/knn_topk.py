@@ -1,11 +1,12 @@
 """Streaming KNN similarity + top-k: the CUDA kernel and its plain version.
 
 Counterpart of pathway_tpu/ops/kernels/knn_topk.py. The kernel
-(csrc/knn_topk.cu) splits the index over many blocks, keeps a per-block
-top-k per query and merges the per-block lists in a second pass; the
-[Q, N] score matrix never exists. `reference_knn_topk` computes the same
-function with a dense matmul and `torch.topk`; the wrapper takes it only
-for tensors on the CPU.
+(csrc/knn_topk.cu) splits the index over the SMs, streams it by TMA,
+scores it on the tensor cores to f32 accuracy (three tf32 products), keeps
+a per-block top-k per query by batched selection and merges the per-block
+lists in a second pass; the [Q, N] score matrix never exists.
+`reference_knn_topk` computes the same function with a dense matmul and
+`torch.topk`; the wrapper takes it only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ def next_pow2(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def grid(n: int, slots: int) -> tuple[int, int]:
+    """Pass-1 grid of one query group over n index rows: (tiles per block,
+    blocks). Each block owns a contiguous run of 128-row tiles; the runs
+    are spread over `slots` resident blocks (one per SM: the kernel's ring
+    takes most of an SM's shared memory), so every block starts at once
+    and none is empty."""
+    ntiles = -(-n // _TILE_ROWS)
+    tiles_per_block = -(-ntiles // max(1, slots))
+    return tiles_per_block, -(-ntiles // tiles_per_block)
 
 
 def reference_knn_topk(index, valid, queries, k: int, *, metric: str = "cos"):
@@ -78,24 +90,23 @@ def knn_topk(index, valid, queries, k: int, *, metric: str = "cos"):
         raise ValueError("knn_topk: D must be a multiple of 4")
     if not 1 <= k <= min(128, n):
         raise ValueError(f"knn_topk: need 1 <= k <= min(128, N), got k={k}, N={n}")
+    if index.data_ptr() % 16:
+        raise ValueError("knn_topk: index must be 16-byte aligned (TMA)")
     lib = _build.load()
     qt = min(64, max(8, next_pow2(qn)))
     kp = next_pow2(k)
-    ntiles = -(-n // _TILE_ROWS)
-    # a few blocks per SM: enough loads in flight to stream the index,
-    # few enough per-block candidate lists for the merge pass
-    target = 4 * _sm_count(index.device.index or 0)
-    tiles_per_block = -(-ntiles // target)
-    nblocks = -(-ntiles // tiles_per_block)
-    groups = -(-qn // qt)
     dev = index.device
+    l2 = metric == "l2sq"
+    tiles_per_block, nblocks = grid(n, _sm_count(dev.index or 0))
+    groups = -(-qn // qt)
+    qsplit = torch.empty((groups, 2, qt, d), dtype=torch.float32, device=dev)
     cand_s = torch.empty((groups, nblocks, qt, kp), dtype=torch.float32, device=dev)
     cand_i = torch.empty((groups, nblocks, qt, kp), dtype=torch.int32, device=dev)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     err = lib.pwt_knn_topk(
         index.data_ptr(), valid.data_ptr(), queries.data_ptr(),
-        n, d, qn, k, kp, qt, int(metric == "l2sq"), tiles_per_block, nblocks,
+        n, d, qn, k, kp, qt, int(l2), tiles_per_block, nblocks, qsplit.data_ptr(),
         cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

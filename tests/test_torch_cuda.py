@@ -6,7 +6,7 @@ no JAX, and the CPU tests (tests/test_torch_*.py) already hold the plain
 versions against the JAX package. Here each kernel is held against its
 plain version on the same CUDA tensors, at shapes the main path does not
 reach (ragged N and D, several query groups, k = N, fewer live slots than
-k, Lq != Lk, every head dim). Run on the card with
+k, duplicated rows, every slot dead, Lq != Lk, every head dim). Run on the card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -60,6 +60,10 @@ def _knn_case(n, d, qn, dead, metric, seed):
         (128, 32, 8, 128, "l2sq", 0.0),  # k = N
         (70000, 384, 64, 128, "l2sq", 0.01),
         (333, 16, 1, 40, "ip", 0.95),  # fewer live slots than k
+        (1000, 20, 5, 6, "ip", 0.1),  # D % 8 == 4: the last tf32 k-step half zeros
+        (50000, 384, 1, 1, "cos", 0.01),  # Q = 1, k = 1
+        (50000, 384, 16, 24, "l2sq", 0.0),  # unnormalised, |s| ~ 400
+        (70001, 64, 64, 128, "ip", 0.01),  # N % 128 != 0 at k = 128, Q = 64
     ],
 )
 def test_knn_topk_kernel_matches_plain(card, n, d, qn, k, metric, dead):
@@ -89,6 +93,38 @@ def test_knn_topk_kernel_matches_plain(card, n, d, qn, k, metric, dead):
     assert (~live).any() == (valid.sum() < k)
 
 
+def test_knn_topk_kernel_ties_go_to_the_lower_slot(card):
+    rng = np.random.default_rng(11)
+    base = rng.standard_normal((700, 48)).astype(np.float32)
+    x = np.concatenate([base, base, base])  # slots i, i + 700, i + 1400 alike
+    q = base[rng.choice(700, 9, replace=False)]
+    q += 0.3 * rng.standard_normal(q.shape).astype(np.float32)
+    xt, qt = torch.from_numpy(x).to(card), torch.from_numpy(q).to(card)
+    vt = torch.ones((len(x),), dtype=torch.bool, device=card)
+    ks, ki = kernels.knn_topk(xt, vt, qt, 16, metric="ip")
+    ps, _ = reference_knn_topk(xt, vt, qt, 16, metric="ip")
+    ks, ki, ps = (t.cpu().numpy() for t in (ks, ki, ps))
+    np.testing.assert_allclose(ks, ps, atol=1e-4, rtol=1e-5)
+    for r in range(len(q)):
+        for a in range(15):  # score descending, then slot ascending
+            assert ks[r, a] > ks[r, a + 1] or (ks[r, a] == ks[r, a + 1] and ki[r, a] < ki[r, a + 1])
+        got = set(ki[r].tolist())
+        for slot in got:  # a copy is taken only after every lower copy
+            assert all(slot % 700 + 700 * c in got for c in range(slot // 700)), (r, slot)
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2sq"])
+def test_knn_topk_kernel_every_slot_dead(card, metric):
+    x, _, q = _knn_case(3000, 40, 4, 0.0, metric, seed=3)
+    xt, qt = torch.from_numpy(x).to(card), torch.from_numpy(q).to(card)
+    vt = torch.zeros((len(x),), dtype=torch.bool, device=card)
+    ks, ki = kernels.knn_topk(xt, vt, qt, 10, metric=metric)
+    ps, _ = reference_knn_topk(xt, vt, qt, 10, metric=metric)
+    # s - 1e30 rounds to -1e30 in f32, so every slot ties and the lowest win
+    assert (ks.cpu() == ps.cpu()).all() and (ps.cpu() == np.float32(-1e30)).all()
+    assert (ki.cpu() == torch.arange(10, dtype=torch.int32)).all()
+
+
 def test_knn_topk_kernel_rejects_what_it_does_not_take(card):
     x = torch.zeros((256, 32), device=card)
     v = torch.ones((256,), dtype=torch.bool, device=card)
@@ -101,6 +137,8 @@ def test_knn_topk_kernel_rejects_what_it_does_not_take(card):
         kernels.knn_topk(x, v, q, 129)
     with pytest.raises(ValueError, match="multiple of 4"):
         kernels.knn_topk(x[:, :30].contiguous(), v, q[:, :30].contiguous(), 3)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.knn_topk(torch.zeros(256 * 32 + 1, device=card)[1:].view(256, 32), v, q, 3)
 
 
 def _flash_case(b, h, lq, lk, d, dtype, seed, card):

@@ -23,6 +23,7 @@ from pathway_tpu_torch.models import transformer as port_tf
 from pathway_tpu_torch.models.convert import params_from_jax
 from pathway_tpu_torch.models.minilm import SentenceEncoder
 from pathway_tpu_torch.ops import knn as port_knn
+from pathway_tpu_torch.ops.kernels.knn_topk import grid as knn_grid
 
 D = 16
 
@@ -169,3 +170,21 @@ def test_fused_rejects_encoder_and_index_on_two_devices():
     index = port_knn.DeviceKnnIndex(64, device="meta")
     with pytest.raises(ValueError, match="encoder on"):
         port_knn.FusedEmbedSearch(penc, index, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "n, slots, want",
+    [
+        (1 << 20, 132, (63, 131)),  # the main path's index, one block per SM
+        (1 << 20, 114, (72, 114)),  # a card with fewer SMs
+        (70001, 132, (5, 110)),  # ragged last tile
+        (1000, 132, (1, 8)),  # fewer tiles than SMs
+        (5, 132, (1, 1)),
+    ],
+)
+def test_knn_kernel_grid_covers_every_tile_once(n, slots, want):
+    tiles_per_block, blocks = knn_grid(n, slots)
+    assert (tiles_per_block, blocks) == want
+    ntiles = -(-n // 128)
+    assert blocks <= slots
+    assert (blocks - 1) * tiles_per_block < ntiles <= blocks * tiles_per_block  # none empty

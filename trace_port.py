@@ -5,7 +5,8 @@
     python3 trace_port.py --device cpu --docs 64 --index-rows 4096   # rehearsal
 
 For each phase of the retrieval data plane (packed ingest, classic ingest,
-encode + DeviceKnnIndex.search_keys, FusedEmbedSearch.search_texts) it runs
+encode + DeviceKnnIndex.search_keys, FusedEmbedSearch.search_texts, then
+the knn_topk kernel alone at four (Q, k) shapes) it runs
 the phase once to warm up, then once under torch.profiler, and prints one
 JSON line: the wall time (host clock, ending in a synchronise), the host
 time of the tokenize / pack step alone, the device's busy time (the union of
@@ -144,6 +145,17 @@ def main() -> int:
     texts = [docs[i % args.docs] for i in range(N_QUERIES)]
     trace("search_keys", lambda: index.search_keys(encoder.encode(texts), 6), device)
     trace("search_texts", lambda: fused.search_texts(texts, 6), device)
+    # the knn_topk kernel alone over the same index: its query split, pass 1
+    # and pass 2 (merge) as separate kernels, at the main path's shape and
+    # at Q = 1 / k = 6, Q = 64 / k = 6 and Q = 64 / k = 128
+    from pathway_tpu_torch.ops.kernels import knn_topk
+
+    rows, live = index.device_buffer, index.device_valid
+    for qn, k in ((N_QUERIES, 6), (1, 6), (64, 6), (64, 128)):
+        q = torch.randn((qn, encoder.dimension), device=device, generator=gen)
+        q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        trace(f"knn_topk Q={qn} k={k}",
+              lambda q=q, k=k: knn_topk(rows, live, q, k, metric="ip"), device)
     return 0
 
 
