@@ -1,10 +1,12 @@
-"""Carry encoder weights from the JAX package's parameter tree to the port.
+"""Carry weights from the JAX package's parameter trees to the port.
 
 The port keeps the JAX layout (same key names, dense weights [in, out]),
 so conversion is a checked tree map from numpy arrays to f32 tensors. It
 covers both layouts the JAX package produces: `init_params` (pre-LN, with
 `ln_f`) and `hf_loader.load_hf_encoder` (post-LN, with `type_embed`,
 `embed_ln` and the HF dense weights already transposed to [in, out]).
+`decoder_params_from_jax` does the same for the decoder's tree
+(models/decoder.py), keeping each array's dtype.
 """
 
 from __future__ import annotations
@@ -54,4 +56,37 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
                 for k, v in layer.items()
             }
         )
+    return out
+
+
+_DECODER_TOP_KEYS = {"embed", "ln_f", "layers", "lm_head"}
+_DECODER_LAYER_KEYS = {"ln1", "ln2", "wq", "wk", "wv", "wo", "gate", "up", "down"}
+
+
+def _decoder_tensor(x) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def decoder_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX decoder parameters as numpy arrays (``init_decoder_params`` or
+    ``load_hf_decoder``, through ``jax.tree_util.tree_map(np.asarray,
+    params)``) -> the port's tree of CPU tensors in the same dtypes,
+    accepted by models/decoder.py. `lm_head` is optional."""
+    unknown = set(tree) - _DECODER_TOP_KEYS
+    missing = {"embed", "ln_f", "layers"} - set(tree)
+    if unknown or missing:
+        raise KeyError(f"decoder parameters: unknown {sorted(unknown)}, missing {sorted(missing)}")
+    out: Dict[str, Any] = {
+        k: _decoder_tensor(tree[k]) for k in ("embed", "ln_f", "lm_head") if k in tree
+    }
+    out["layers"] = []
+    for i, layer in enumerate(tree["layers"]):
+        if set(layer) != _DECODER_LAYER_KEYS:
+            raise KeyError(
+                f"layer {i} has keys {sorted(layer)}, expected {sorted(_DECODER_LAYER_KEYS)}"
+            )
+        out["layers"].append({k: _decoder_tensor(v) for k, v in layer.items()})
     return out

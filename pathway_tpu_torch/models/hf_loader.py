@@ -1,10 +1,12 @@
-"""Local HF encoder checkpoints -> the port's parameter tree (the encoder
-half of pathway_tpu/models/hf_loader.py, with the same tensor mapping).
+"""Local HF checkpoints -> the port's parameter trees (counterpart of
+pathway_tpu/models/hf_loader.py, with the same tensor mapping).
 
 Point `SentenceEncoder` at a directory holding a BERT-family checkpoint
 (`config.json` + `model.safetensors` / `pytorch_model.bin` / `weights.npz`
 + `vocab.txt`) and the tensors are remapped into the post-LN ("bert")
-layout of models/transformer.py. Loading is from the filesystem only.
+layout of models/transformer.py; point `ChatModel` at a Llama/Mistral-
+family one and they are remapped into models/decoder.py's layout.
+Loading is from the filesystem only.
 """
 
 from __future__ import annotations
@@ -151,3 +153,90 @@ def load_tokenizer(path: str, lowercase: bool | None = None):
             with open(cfg_tok, encoding="utf-8") as f:
                 lowercase = bool(json.load(f).get("do_lower_case", True))
     return WordPieceTokenizer(vocab_path, lowercase=lowercase)
+
+
+def is_decoder_checkpoint(path: str) -> bool:
+    """config.json with a Llama/Mistral-family architecture."""
+    cfg_path = os.path.join(path, "config.json")
+    if not os.path.exists(cfg_path):
+        return False
+    with open(cfg_path, encoding="utf-8") as f:
+        cfg = json.load(f)
+    archs = cfg.get("architectures") or []
+    model_type = cfg.get("model_type", "")
+    return model_type in ("llama", "mistral", "mixtral") or any(
+        "CausalLM" in a for a in archs
+    )
+
+
+def load_hf_decoder(path: str, *, dtype: str | None = None):
+    """Llama/Mistral-family causal checkpoint -> (DecoderConfig, params)
+    for models/decoder.py; params are CPU tensors.
+
+    Name mapping (torch Linear weights transpose onto x @ W):
+      model.embed_tokens.weight                 -> embed [V,H]
+      model.norm.weight                         -> ln_f
+      model.layers.i.input_layernorm.weight     -> ln1
+      model.layers.i.post_attention_layernorm   -> ln2
+      model.layers.i.self_attn.{q,k,v,o}_proj   -> wq/wk/wv/wo
+      model.layers.i.mlp.{gate,up,down}_proj    -> gate/up/down
+      lm_head.weight                            -> lm_head (untied head)
+
+    Matmul weights are stored in the compute dtype; norms, embed and
+    lm_head stay f32 (the logits are an f32 product)."""
+    from pathway_tpu_torch.models.decoder import DecoderConfig
+
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        cfg = json.load(f)
+    config = DecoderConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden=cfg["hidden_size"],
+        layers=cfg["num_hidden_layers"],
+        q_heads=cfg["num_attention_heads"],
+        kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+        mlp_dim=cfg["intermediate_size"],
+        max_len=min(cfg.get("max_position_embeddings", 4096), 32768),
+        rope_theta=float(cfg.get("rope_theta", 10000.0)),
+        norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
+        dtype=dtype or "bfloat16",
+    )
+    weight_dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+    tensors = _read_tensors(path)
+
+    def get(name: str) -> np.ndarray:
+        if name not in tensors:
+            raise KeyError(
+                f"checkpoint {path} is missing tensor {name!r}; "
+                f"has {sorted(tensors)[:8]}..."
+            )
+        return tensors[name]
+
+    def f32(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def weight(x: np.ndarray) -> torch.Tensor:
+        return f32(x).to(weight_dtype)
+
+    params: Dict[str, Any] = {
+        "embed": f32(get("model.embed_tokens.weight")),
+        "ln_f": f32(get("model.norm.weight")),
+        "layers": [],
+    }
+    if "lm_head.weight" in tensors:
+        params["lm_head"] = f32(tensors["lm_head.weight"])
+    for i in range(config.layers):
+        p = f"model.layers.{i}."
+        params["layers"].append(
+            {
+                "ln1": f32(get(p + "input_layernorm.weight")),
+                "ln2": f32(get(p + "post_attention_layernorm.weight")),
+                "wq": weight(get(p + "self_attn.q_proj.weight").T),
+                "wk": weight(get(p + "self_attn.k_proj.weight").T),
+                "wv": weight(get(p + "self_attn.v_proj.weight").T),
+                "wo": weight(get(p + "self_attn.o_proj.weight").T),
+                "gate": weight(get(p + "mlp.gate_proj.weight").T),
+                "up": weight(get(p + "mlp.up_proj.weight").T),
+                "down": weight(get(p + "mlp.down_proj.weight").T),
+            }
+        )
+    return config, params

@@ -368,3 +368,43 @@ def _try_native(tokenizer, texts, max_len, batch_bucket):
     ids[:batch] = ids_full[:, :seq_len]
     mask[:batch] = mask_full[:, :seq_len]
     return ids, mask
+
+
+class FastTokenizer:
+    """Adapter over HuggingFace `tokenizers` (tokenizer.json, the format
+    Llama/Mistral checkpoints ship). Same interface as HashTokenizer /
+    WordPieceTokenizer. `tokenizers` is imported only when one is built."""
+
+    def __init__(self, path: str):
+        from tokenizers import Tokenizer  # type: ignore
+
+        self._tok = Tokenizer.from_file(path)
+        self.vocab_size = self._tok.get_vocab_size()
+        self.lowercase = False
+        self.pad_id = 0
+        for cand in ("<pad>", "[PAD]", "<unk>", "<s>"):
+            tid = self._tok.token_to_id(cand)
+            if tid is not None:
+                self.pad_id = tid
+                break
+
+    def tokenize(self, text: str) -> List[str]:
+        return self._tok.encode(text).tokens
+
+    def encode(self, text: str, max_len: int | None = None) -> List[int]:
+        ids = self._tok.encode(text).ids
+        if max_len is not None:
+            ids = ids[:max_len]
+        return ids
+
+    def encode_pair(self, a: str, b: str, max_len: int | None = None) -> List[int]:
+        ids = self._tok.encode(a, b).ids
+        if max_len is not None:
+            ids = ids[:max_len]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode([int(i) for i in ids], skip_special_tokens=True)
+
+    def count_tokens(self, text: str) -> int:
+        return len(self._tok.encode(text).ids)

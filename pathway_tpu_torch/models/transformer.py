@@ -10,8 +10,10 @@ L2 normalisation in f32.
 
 Attention over long sequences (bucketed L > 256) on the card goes through
 the hand-written flash kernel (ops/kernels/flash_attention.py); packed
-slabs use dense segment-masked attention, as in the JAX package. Decoder
-configs and generation, and mesh parameters, are not ported yet.
+slabs use dense segment-masked attention, as in the JAX package. The
+decoder configs (`MISTRAL_7B`, `TINY_DECODER`) and `TransformerLM.generate`
+(greedy, recomputing the prefix) are here too; the KV-cached decoder is
+models/decoder.py. Mesh parameters are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +57,30 @@ class TransformerConfig:
 # MiniLM-L6-class config (the reference's default embedder model family)
 MINILM_L6 = TransformerConfig(
     vocab_size=30522, hidden=384, layers=6, heads=12, mlp_dim=1536
+)
+
+# Mistral-7B-class geometry (the reference's Private-RAG HFPipelineChat
+# target); instantiate smaller variants for tests
+MISTRAL_7B = TransformerConfig(
+    vocab_size=32000,
+    hidden=4096,
+    layers=32,
+    heads=32,
+    mlp_dim=14336,
+    max_len=4096,
+    causal=True,
+    pooling="none",
+)
+
+TINY_DECODER = TransformerConfig(
+    vocab_size=1024,
+    hidden=64,
+    layers=2,
+    heads=4,
+    mlp_dim=128,
+    max_len=128,
+    causal=True,
+    pooling="none",
 )
 
 # the dense weights and biases that run in the compute dtype
@@ -353,3 +379,35 @@ class TransformerLM(nn.Module):
                 seg=_to_device_ints(seg, self.device),
                 max_segments=int(max_segments),
             )
+
+    def generate(self, ids, mask, max_new_tokens: int = 16) -> np.ndarray:
+        """Greedy decode that recomputes the whole prefix each step, with
+        the JAX package's rules: prompts longer than max_len are cut, the
+        [B, L] buffer doubles (up to max_len) when a row reaches its end,
+        and decoding stops early once the buffer is full at max_len.
+        ids, mask: [B, L] left-aligned. Returns [B, steps] int32."""
+        ids = np.array(ids)
+        mask = np.array(mask)
+        max_len = self.config.max_len
+        if ids.shape[1] > max_len:
+            ids = ids[:, :max_len]
+            mask = mask[:, :max_len]
+        out_tokens = []
+        for _ in range(max_new_tokens):
+            logits = self(ids, mask)
+            lengths = mask.sum(axis=1) - 1
+            b, l = ids.shape
+            rows = torch.arange(b, device=logits.device)
+            last = logits[rows, torch.from_numpy(lengths).to(logits.device)]
+            nxt = last.argmax(-1).cpu().numpy().astype(np.int32)
+            out_tokens.append(nxt)
+            if (lengths + 1 >= l).any():
+                if l >= max_len:
+                    # the position table is the hard ceiling
+                    break
+                grow = min(l, max_len - l)
+                ids = np.concatenate([ids, np.zeros((b, grow), dtype=ids.dtype)], axis=1)
+                mask = np.concatenate([mask, np.zeros((b, grow), dtype=mask.dtype)], axis=1)
+            ids[np.arange(b), lengths + 1] = nxt
+            mask[np.arange(b), lengths + 1] = 1
+        return np.stack(out_tokens, axis=1)

@@ -31,7 +31,11 @@
 //       which is MN-major for this product (the transposed-B flag), so v
 //       is never transposed by hand. The swizzle is the row width (32, 64
 //       or 128 bytes for D = 16, 32, 64) in both the tensor maps and the
-//       wgmma descriptors.
+//       wgmma descriptors. At D = 128 (the decoder's heads, 256-byte rows)
+//       each tile is loaded as two 64-column boxes into two 128-byte
+//       swizzled parts (Split): the k-steps of S walk part 0, then part 1,
+//       and P v at N = 128 reads both parts of v through the descriptor's
+//       leading byte offset.
 //     - Exp unit: the softmax runs on the accumulator registers in log2
 //       units: scale and mask are one FFMA per score (s * scale * log2(e)
 //       plus the stage's mask addend, written to shared memory once per
@@ -40,10 +44,9 @@
 //       rounded to bf16, goes straight from the score registers into the
 //       A operand of P v (the accumulator layout of two neighbouring
 //       8-column blocks is the A layout of one 16-key step).
-//   flash_fwd_f32 (f32): the simple design, one thread per query row on
-//     the CUDA cores with q, the accumulator and the softmax state in
-//     registers, 32-key tiles in shared memory read as broadcasts. It
-//     serves f32 callers (tests, f32 configs), not the bf16 encoder.
+//   flash_fwd_f32 (f32, in flash_attention_f32.cu): the simple design, one
+//     thread per query row on the CUDA cores. It serves f32 callers (tests,
+//     f32 configs), not the bf16 encoder or decoder.
 //
 // The sequential kv grid axis of the TPU kernel becomes the loop over kv
 // tiles inside a block. Keys past the end of the sequence take no part;
@@ -64,100 +67,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;  // JAX NEG_INF
 
-// ---- f32: one thread per query row ---------------------------------------
-
-constexpr int BQ = 128;  // query rows per block, one per thread
-constexpr int BK = 32;   // keys per shared-memory tile
-
-// grid: (B*H, ceil(Lq / BQ)); block: BQ threads.
-template <int D>
-__global__ void __launch_bounds__(BQ)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int32_t* __restrict__ kv_mask,
-              float* __restrict__ o, int H, int Lq, int Lk, float sm_scale, int causal) {
-    __shared__ float Ks[BK][D];
-    __shared__ float Vs[BK][D];
-    __shared__ float Ms[BK];
-
-    const int bh = blockIdx.x;
-    const int b = bh / H;
-    const int qi = blockIdx.y * BQ + threadIdx.x;
-    const bool active = qi < Lq;
-
-    float qr[D];
-    float acc[D];
-    const float* qrow = q + ((size_t)bh * Lq + (active ? qi : 0)) * D;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-        qr[dd] = active ? qrow[dd] : 0.f;
-        acc[dd] = 0.f;
-    }
-    float m = NEG_INF;
-    float l = 0.f;
-
-    const float* kb = k + (size_t)bh * Lk * D;
-    const float* vb = v + (size_t)bh * Lk * D;
-    const int32_t* mb = kv_mask + (size_t)b * Lk;
-    // causal: keys after the block's last query row are masked for every
-    // row of the block, and add exactly 0 to any row with a live key
-    const int kend = causal ? min(Lk, (int)(blockIdx.y + 1) * BQ) : Lk;
-
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-        __syncthreads();  // previous tile fully consumed
-        for (int e = threadIdx.x; e < BK * D; e += BQ) {
-            const int j = e / D;
-            const int dd = e - j * D;
-            const int kj = k0 + j;
-            Ks[j][dd] = kj < Lk ? kb[(size_t)kj * D + dd] : 0.f;
-            Vs[j][dd] = kj < Lk ? vb[(size_t)kj * D + dd] : 0.f;
-        }
-        for (int j = threadIdx.x; j < BK; j += BQ) {
-            const int kj = k0 + j;
-            Ms[j] = kj < Lk ? (1.f - (float)mb[kj]) * NEG_INF : 0.f;
-        }
-        __syncthreads();
-
-        float s[BK];
-        float m_new = m;
-#pragma unroll
-        for (int j = 0; j < BK; ++j) {
-            float dot = 0.f;
-#pragma unroll
-            for (int dd = 0; dd < D; ++dd) dot = fmaf(qr[dd], Ks[j][dd], dot);
-            const int kj = k0 + j;
-            float sj;
-            if (kj >= Lk) {
-                sj = -INFINITY;  // not a key at all
-            } else if (causal && kj > qi) {
-                sj = NEG_INF;
-            } else {
-                sj = dot * sm_scale + Ms[j];
-            }
-            s[j] = sj;
-            m_new = fmaxf(m_new, sj);
-        }
-        const float alpha = expf(m - m_new);
-        l *= alpha;
-#pragma unroll
-        for (int dd = 0; dd < D; ++dd) acc[dd] *= alpha;
-#pragma unroll
-        for (int j = 0; j < BK; ++j) {
-            const float p = expf(s[j] - m_new);
-            l += p;
-#pragma unroll
-            for (int dd = 0; dd < D; ++dd) acc[dd] = fmaf(p, Vs[j][dd], acc[dd]);
-        }
-        m = m_new;
-    }
-
-    if (active) {
-        const float denom = l == 0.f ? 1.f : l;
-        float* orow = o + ((size_t)bh * Lq + qi) * D;
-#pragma unroll
-        for (int dd = 0; dd < D; ++dd) orow[dd] = acc[dd] / denom;
-    }
-}
-
 // ---- bf16: wgmma, TMA ring, exp2 softmax -----------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -168,10 +77,23 @@ constexpr int BM = NWG * WG_ROWS;  // query rows per block
 constexpr int BN = 64;       // keys per kv tile
 constexpr int STAGES = 3;    // kv tiles in the ring
 
+// Column split of a q / k / v tile. The 128-byte swizzle is the widest, so
+// a row wider than 128 bytes (D = 128, 256 bytes) is loaded as NH boxes of
+// CW columns, each into a [rows][CW] part of its own: a tile is stored as
+// [NH][rows][CW], swizzled by the part's row width CW * 2 bytes. At D <= 64
+// NH = 1 and the part is the whole tile.
+template <int D>
+struct Split {
+    static constexpr int CW = D > 64 ? 64 : D;  // columns of one part
+    static constexpr int NH = D / CW;            // parts of a row
+    static constexpr uint32_t ROW = CW * 2;      // bytes of a row of one part
+};
+
 // Shared memory of one block, byte offsets from a 1024-byte aligned base
-// (every tile starts on a whole swizzle atom): q, the k and v rings, the
-// mask addends of each stage, then the mbarriers (full[STAGES],
-// empty[STAGES], q).
+// (every tile and every part starts on a whole swizzle atom): q, the k and
+// v rings, the mask addends of each stage, then the mbarriers (full[STAGES],
+// empty[STAGES], q). D = 128 takes 32 KB for q and 96 KB for the ring, so
+// one block fits on an SM.
 template <int D>
 struct Smem {
     static constexpr int Q = 0;
@@ -244,6 +166,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A B, m64n128k16: A [64 x 16] from registers, B [16 x 128] MN-major in
+// shared memory (two 64-column swizzle atoms, the leading byte offset apart)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // 2^x as one ex2 on the special-function unit: exp2f's instruction, with
 // results below 2^-126 flushed to zero
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -263,14 +212,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // producer warp. Rows past Lq read as zeros and are never stored. Lane (g = lane / 4, t = lane % 4) of warp w of a consumer
 // warpgroup holds the accumulator rows 16 w + g and 16 w + g + 8 at
 // columns 8 n + 2 t and 8 n + 2 t + 1 (registers 4 n .. 4 n + 3).
+// Two blocks share an SM up to D = 64 (at most 113 registers a thread); at
+// D = 128 the accumulator alone takes 64 registers and the shared memory
+// allows one block, so the compiler may use up to 224.
 template <int D>
-__global__ void __launch_bounds__(NWG * 128 + 32, 2)
+__global__ void __launch_bounds__(NWG * 128 + 32, D > 64 ? 1 : 2)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const int32_t* __restrict__ kv_mask,
                __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, int q_tiles,
                float scale_log2, int causal) {
     using S = Smem<D>;
+    using P = Split<D>;
     constexpr uint32_t ROW = D * 2;  // bytes of one q / k / v row
+    constexpr int CW = P::CW;
+    constexpr uint32_t PROW = P::ROW;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + S::Q);
@@ -306,7 +261,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         const int32_t* mb = kv_mask + (size_t)(bh / H) * Lk;
         if (lane == 0) {
             mbar_arrive_expect_tx(bar_q, BM * ROW);
-            tma_load_3d(smem_u32(sq), &tm_q, bar_q, 0, q0, bh);
+#pragma unroll
+            for (int h = 0; h < P::NH; ++h)
+                tma_load_3d(smem_u32(sq + h * BM * CW), &tm_q, bar_q, h * CW, q0, bh);
         }
         for (int j = 0; j < n_tiles; ++j) {
             const int s = j % STAGES;
@@ -318,8 +275,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
             }
             if (lane == 0) {
                 mbar_arrive_expect_tx(bar_full + 8 * s, 2 * BN * ROW);
-                tma_load_3d(smem_u32(sk + s * BN * D), &tm_k, bar_full + 8 * s, 0, k0, bh);
-                tma_load_3d(smem_u32(sv + s * BN * D), &tm_v, bar_full + 8 * s, 0, k0, bh);
+#pragma unroll
+                for (int h = 0; h < P::NH; ++h) {
+                    const int part = s * BN * D + h * BN * CW;
+                    tma_load_3d(smem_u32(sk + part), &tm_k, bar_full + 8 * s, h * CW, k0, bh);
+                    tma_load_3d(smem_u32(sv + part), &tm_v, bar_full + 8 * s, h * CW, k0, bh);
+                }
             } else {
                 mbar_arrive(bar_full + 8 * s);
             }
@@ -332,9 +293,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int t = lane & 3;
     const int warp_row0 = q0 + wg * WG_ROWS + (warp & 3) * 16;
     const int row_a = warp_row0 + (lane >> 2);  // and row_a + 8
-    // K-major operands (q, k): 8-row groups ROW * 8 bytes apart; a k-step of
-    // 16 columns starts 32 bytes further into the swizzled rows
-    const uint64_t dq = smem_desc<D * 2>(sq + wg * WG_ROWS * D, 16, 8 * ROW);
+    // K-major operands (q, k): 8-row groups PROW * 8 bytes apart; a k-step
+    // of 16 columns starts 32 bytes further into the swizzled rows of its
+    // part, and the k-steps of part h read part h's rows
+    constexpr int KS = CW / 16;  // k-steps in one part
+    uint64_t dq[P::NH];
+#pragma unroll
+    for (int h = 0; h < P::NH; ++h)
+        dq[h] = smem_desc<PROW>(sq + h * BM * CW + wg * WG_ROWS * CW, 16, 8 * PROW);
 
     float acc[D / 2];
 #pragma unroll
@@ -350,10 +316,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
         // S = q k^T, [64 x BN] per warpgroup
         float sc[BN / 2];
-        const uint64_t dk = smem_desc<D * 2>(sk + s * BN * D, 16, 8 * ROW);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(sc, dq + 2 * ks, dk + 2 * ks, ks);
+        for (int h = 0; h < P::NH; ++h) {
+            const uint64_t dk = smem_desc<PROW>(sk + s * BN * D + h * BN * CW, 16, 8 * PROW);
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) wgmma_ss(sc, dq[h] + 2 * ks, dk + 2 * ks, h * KS + ks);
+        }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(sc);
@@ -422,13 +391,16 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         }
 
         // O += P v. v's tile is [key][d] as stored: MN-major for this
-        // product, 8-key groups ROW * 8 bytes apart, a k-step of 16 keys
-        // 16 rows further
-        const uint64_t dv = smem_desc<D * 2>(sv + s * BN * D, 8 * ROW, 8 * ROW);
+        // product, 8-key groups PROW * 8 bytes apart, a k-step of 16 keys
+        // 16 rows further; at D = 128 the second 64 columns are the next
+        // part, BN * PROW bytes on (the leading byte offset; with one part
+        // it is never read)
+        constexpr uint32_t LBO = P::NH > 1 ? BN * PROW : 8 * PROW;
+        const uint64_t dv = smem_desc<PROW>(sv + s * BN * D, LBO, 8 * PROW);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, pa[kk], dv + ((16 * ROW) >> 4) * kk);
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, pa[kk], dv + ((16 * PROW) >> 4) * kk);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
@@ -452,19 +424,21 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     }
 }
 
-// [B H, L, D] bf16 as a 3-D tensor map with boxes of `rows` rows, swizzled
-// by the row width; rows past L read as zeros
+// [B H, L, D] bf16 as a 3-D tensor map with boxes of `rows` rows and one
+// part's columns (Split<D>::CW), swizzled by the part's row width; rows past
+// L read as zeros
 template <int D>
 bool make_map(CUtensorMap* map, const void* base, int bh, int L, int rows) {
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return false;
+    constexpr int CW = Split<D>::CW;
     const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
     const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
+    const cuuint32_t box[3] = {(cuuint32_t)CW, (cuuint32_t)rows, 1};
     const cuuint32_t unit[3] = {1, 1, 1};
-    const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+    const CUtensorMapSwizzle swizzle = CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
     return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                   strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -493,36 +467,34 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int32
     return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask,
-                   void* o, int B, int H, int Lq, int Lk, float sm_scale, int causal,
-                   int is_bf16, cudaStream_t stream) {
-    const int32_t* mask = static_cast<const int32_t*>(kv_mask);
-    if (is_bf16) return launch_bf16<D>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, stream);
-    dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-    flash_fwd_f32<D><<<grid, BQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, static_cast<float*>(o), H, Lq, Lk,
-        sm_scale, causal);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
+// flash_attention_f32.cu: the f32 inputs' kernel, built as a source of its
+// own so that nvcc compiles the two files at once
+int pwt_flash_attention_f32_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
+                                void* o, int B, int H, int Lq, int Lk, int D, float sm_scale,
+                                int causal, void* stream);
+
 // q: [B, H, Lq, D], k / v: [B, H, Lk, D], all contiguous, f32 or bf16
 // (is_bf16; bf16 pointers 16-byte aligned); kv_mask: [B, Lk] int32
-// (1 = live key); o: like q. D in {16, 32, 64}.
+// (1 = live key); o: like q. D in {16, 32, 64, 128}.
 int pwt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             const void* kv_mask, void* o, int B, int H, int Lq,
                             int Lk, int D, float sm_scale, int causal, int is_bf16,
                             void* stream) {
+    if (!is_bf16) {
+        return pwt_flash_attention_f32_fwd(q, k, v, kv_mask, o, B, H, Lq, Lk, D, sm_scale,
+                                           causal, stream);
+    }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* mask = static_cast<const int32_t*>(kv_mask);
     switch (D) {
-        case 16: return (int)launch<16>(q, k, v, kv_mask, o, B, H, Lq, Lk, sm_scale, causal, is_bf16, st);
-        case 32: return (int)launch<32>(q, k, v, kv_mask, o, B, H, Lq, Lk, sm_scale, causal, is_bf16, st);
-        case 64: return (int)launch<64>(q, k, v, kv_mask, o, B, H, Lq, Lk, sm_scale, causal, is_bf16, st);
+        case 16: return (int)launch_bf16<16>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
+        case 32: return (int)launch_bf16<32>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
+        case 64: return (int)launch_bf16<64>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
+        case 128: return (int)launch_bf16<128>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

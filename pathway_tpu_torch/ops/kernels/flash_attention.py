@@ -4,7 +4,8 @@ Counterpart of pathway_tpu/ops/kernels/flash_attention.py. The kernel
 (csrc/flash_attention.cu) runs online-softmax attention with f32 softmax
 state and never writes the [L, L] scores; bf16 inputs go through the
 tensor cores (wgmma, with k and v brought in by TMA), f32 inputs through
-a simple CUDA-core kernel.
+a simple CUDA-core kernel. Head dims 16, 32, 64 (the encoders) and 128
+(the decoder's prefill).
 `reference_attention` is the
 plain version, the same function as the JAX package's
 `_reference_attention`; the wrapper takes it only for tensors on the CPU.
@@ -24,7 +25,7 @@ import torch
 from pathway_tpu_torch.ops.kernels import _build
 from pathway_tpu_torch.ops.kernels.knn_topk import NEG_INF
 
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reference_attention(q, k, v, kv_mask, sm_scale: float, causal: bool):

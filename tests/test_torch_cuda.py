@@ -17,12 +17,15 @@ order than cuBLAS; unnormalised l2sq scores reach |s| ~ 300);
 flash atol 1e-4 in f32 and 2e-2 in bf16 (about one bf16 ulp at |o| in
 [2, 4)), on rows with at least one live key; fully masked rows only need
 to be finite. Encoder: f32 atol 1e-4, bf16 per-row cosine >= 0.999.
+Decoder (head dim 128): f32 logits atol 1e-4 and the same greedy tokens,
+bf16 per-position logit cosine >= 0.999.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pathway_tpu_torch.models import decoder as dec
 from pathway_tpu_torch.models.minilm import SentenceEncoder
 from pathway_tpu_torch.models.transformer import TransformerConfig
 from pathway_tpu_torch.ops import kernels
@@ -167,6 +170,18 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (1, 2, 40, 130, 32, torch.bfloat16, False),  # Lq != Lk, rows past Lq
         (2, 3, 300, 300, 32, torch.bfloat16, True),  # Lq not a multiple of 128
         (64, 12, 64, 64, 32, torch.bfloat16, False),  # the ingest shape
+        # head dim 128 (the decoder's prefill): two 64-column parts a tile
+        (2, 4, 200, 200, 128, torch.bfloat16, True),
+        (2, 4, 200, 200, 128, torch.bfloat16, False),
+        (2, 2, 1000, 1000, 128, torch.bfloat16, True),
+        (2, 2, 1, 77, 128, torch.bfloat16, False),  # Lq = 1, Lk % 64 != 0
+        (2, 2, 1, 1000, 128, torch.bfloat16, True),  # one row, one causal key
+        (2, 3, 130, 301, 128, torch.bfloat16, False),  # Lq != Lk
+        (2, 4, 200, 200, 128, torch.float32, True),
+        (2, 2, 1000, 1000, 128, torch.float32, False),
+        (2, 2, 1, 77, 128, torch.float32, False),
+        (2, 3, 130, 301, 128, torch.float32, True),
+        (1, 2, 300, 300, 128, torch.float32, False),  # one batch row, every key live
     ],
 )
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
@@ -267,3 +282,42 @@ def test_fused_embed_search_on_card_matches_cpu(card):
     for g, w in zip(got, want):
         assert [key for key, _ in g] == [key for key, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_on_card_matches_cpu_and_prefills_through_flash(card, dtype):
+    config = dec.DecoderConfig(
+        vocab_size=512, hidden=256, layers=2, q_heads=2, kv_heads=1,
+        mlp_dim=512, max_len=512, dtype=dtype,
+    )
+    cpu_params = dec.init_decoder_params(torch.Generator().manual_seed(0), config)
+    gpu_params = {
+        "embed": cpu_params["embed"].to(card), "ln_f": cpu_params["ln_f"].to(card),
+        "layers": [{k: t.to(card) for k, t in layer.items()} for layer in cpu_params["layers"]],
+    }
+    rng = np.random.default_rng(0)
+    ids = np.zeros((3, 300), dtype=np.int32)
+    mask = np.zeros_like(ids)
+    for r, n in enumerate((300, 280, 150)):
+        ids[r, :n] = rng.integers(1, 512, size=n)
+        mask[r, :n] = 1
+    ti, tm = torch.from_numpy(ids), torch.from_numpy(mask)
+    before = kernels.flash_attention.launches
+    got, _ = dec.decoder_forward(gpu_params, config, ti.to(card), tm.to(card))
+    assert kernels.flash_attention.launches == before + 2  # one per layer at L = 300
+    want, _ = dec.decoder_forward(cpu_params, config, ti, tm)
+    live = tm.bool()
+    got, want = got.cpu()[live], want[live]
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+    else:
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert cos.min().item() >= 0.999
+    before = kernels.flash_attention.launches
+    toks = dec.generate_tokens(gpu_params, config, ids, mask, max_new_tokens=6)
+    assert kernels.flash_attention.launches == before + 2  # the prefill's
+    assert toks.shape == (3, 6) and (toks >= 0).all() and (toks < 512).all()
+    if dtype == "float32":
+        np.testing.assert_array_equal(
+            toks, dec.generate_tokens(cpu_params, config, ids, mask, max_new_tokens=6)
+        )

@@ -69,6 +69,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import pathway_tpu_torch.ops.knn, pathway_tpu_torch.models.minilm\n"
         "import pathway_tpu_torch.models.hf_loader, pathway_tpu_torch.models.convert\n"
+        "import pathway_tpu_torch.models.decoder, pathway_tpu_torch.models.decoder_lm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"
@@ -92,10 +93,14 @@ def _tiny_config():
 
 @pytest.mark.parametrize(
     "entry",
-    ["resolve_device", "TransformerLM", "SentenceEncoder", "DeviceKnnIndex", "FusedEmbedSearch"],
+    [
+        "resolve_device", "TransformerLM", "SentenceEncoder", "DeviceKnnIndex",
+        "FusedEmbedSearch", "ChatModel",
+    ],
 )
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     from pathway_tpu_torch import resolve_device
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
     from pathway_tpu_torch.models.minilm import SentenceEncoder
     from pathway_tpu_torch.models.transformer import TransformerLM
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
@@ -110,6 +115,7 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
             SentenceEncoder("iso", config=_tiny_config(), device="cpu"),
             DeviceKnnIndex(16, device="cpu"),
         ),
+        "ChatModel": lambda: ChatModel("tiny-decoder"),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
@@ -124,3 +130,12 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
     fused.embed_and_add(["a", "b"], ["first doc", "second doc"])
     assert fused.search_texts(["first doc"], 1)[0][0][0] == "a"
     assert enc.device.type == fused.index.device.type == "cpu"
+
+
+def test_chat_model_runs_on_the_cpu_when_asked(no_cuda):
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+
+    chat = ChatModel("tiny-decoder", device="cpu")
+    out = chat.generate(["hello world", "stream processing"], max_new_tokens=3)
+    assert len(out) == 2 and all(isinstance(s, str) for s in out)
+    assert chat.device.type == chat.params["embed"].device.type == "cpu"

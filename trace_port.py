@@ -2,11 +2,14 @@
 """Where the time goes on the port's main path: a torch.profiler trace.
 
     python3 trace_port.py                    # on the card, full MiniLM-L6 width
-    python3 trace_port.py --device cpu --docs 64 --index-rows 4096   # rehearsal
+    python3 trace_port.py --device cpu --docs 64 --index-rows 4096 --decoder tiny  # rehearsal
 
 For each phase of the retrieval data plane (packed ingest, classic ingest,
 encode + DeviceKnnIndex.search_keys, FusedEmbedSearch.search_texts, then
-the knn_topk kernel alone at four (Q, k) shapes) it runs
+the knn_topk kernel alone at four (Q, k) shapes), and of the decoder
+(ChatModel("mistral-7b", max_len=2048) at full width, 8 prompts of
+700-1000 words as in chip_smoke.py: the prefill, then 8 KV-cached decode
+steps at batch 8) it runs
 the phase once to warm up, then once under torch.profiler, and prints one
 JSON line: the wall time (host clock, ending in a synchronise), the host
 time of the tokenize / pack step alone, the device's busy time (the union of
@@ -97,6 +100,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--docs", type=int, default=4096, help="docs per ingest phase")
     ap.add_argument("--index-rows", type=int, default=1 << 20)
+    ap.add_argument("--decoder", choices=("mistral-7b", "tiny"), default="mistral-7b",
+                    help="the decoder's geometry (tiny for a rehearsal)")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -156,7 +161,53 @@ def main() -> int:
         q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
         trace(f"knn_topk Q={qn} k={k}",
               lambda q=q, k=k: knn_topk(rows, live, q, k, metric="ip"), device)
+    del encoder, index, fused, rows, live
+    trace_decoder(args.decoder, device)
     return 0
+
+
+def trace_decoder(model: str, device: torch.device) -> None:
+    """The decoder's prefill (one generate_tokens call that makes one new
+    token) and 8 decode steps on the cache the prefill wrote, the calls
+    generate_tokens makes."""
+    import gc
+
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    config = None
+    if model == "tiny":
+        config = dec.DecoderConfig(vocab_size=512, hidden=64, layers=2, q_heads=4, kv_heads=2,
+                                   mlp_dim=128, max_len=1200, dtype="bfloat16")
+    chat = ChatModel(model, config=config, max_len=2048, seed=SEED, device=device)
+    cfg, params = chat.config, chat.params
+    rng = random.Random(11)
+    prompts = [" ".join(rng.choices(_WORDS, k=rng.randint(700, 1000))) for _ in range(8)]
+    ids, mask = chat.encode_prompts(prompts, 32)
+    b, l = ids.shape
+    trace(f"decoder prefill [{b}, {l}]",
+          lambda: dec.generate_tokens(params, cfg, ids, mask, max_new_tokens=1), device)
+    ti, tm = torch.from_numpy(ids).long().to(device), torch.from_numpy(mask).long().to(device)
+    lengths = tm.sum(1)
+    kv_valid = torch.zeros((b, cfg.max_len), dtype=torch.int32, device=device)
+    kv_valid[:, :l] = tm
+    cache = dec.init_kv_cache(cfg, b, device)
+    tok = torch.ones((b, 1), dtype=torch.long, device=device)
+    with torch.no_grad():
+        dec.decoder_forward(params, cfg, ti, tm, positions=tm.cumsum(1) - 1, kv_cache=cache,
+                            kv_valid=kv_valid)
+
+        def decode(steps=8):
+            for t in range(steps):
+                kv_valid[:, l + t] = 1
+                dec.decoder_forward(params, cfg, tok, torch.ones_like(tok),
+                                    positions=(lengths + t)[:, None], kv_cache=cache,
+                                    kv_valid=kv_valid, slot_offset=l + t)
+
+        trace(f"decoder decode, 8 steps at batch {b}", decode, device)
 
 
 if __name__ == "__main__":
