@@ -30,7 +30,24 @@ width with random weights from a seed:
      takes the flash kernel at head dim 128; prefill through flash against
      the dense path, KV-cached steps against recomputing the prefix, and
      prefill and decode rates against their bounds;
-  7. the card's line, one `kernels` JSON line, then the `ok` JSON line.
+  7. pipelined ingest: the JAX package's async DevicePipeline, ported
+     (pathway_tpu_torch/internals/device_pipeline.py), over
+     FusedEmbedSearch.prepare_batch / dispatch_batch for the same 16,384
+     docs, beside the classic embed_and_add path, each into its own
+     2^20-row index; both indexes retrieve each of 32 docs at rank 1 and
+     agree on the top 6;
+  8. the framework path on the card's host: the wordcount pipeline of
+     benchmarks/wordcount_bench.py through `pathway_tpu_torch` (fs json
+     read -> groupby(word).reduce(count) -> pw.io.csv.write) over
+     1,000,000 rows in 8 files, checked against collections.Counter, and a
+     streaming table (`__time__` / `__diff__`) -> pw.io.subscribe checked
+     against its expected additions and retractions;
+  9. the card's line, one `kernels` JSON line, then the `ok` JSON line.
+
+Phase 3 also holds the two shape repairs: DeviceKnnIndex at dimensions
+2, 3 and 6 (rows padded to 16 bytes for the kernel) against the same
+index on the CPU, and flash at head dims 24, 48 and 80 (zero-padded to
+the next kernel instance) against the plain version.
 
 Every check raises on failure, so a failed phase exits non-zero and prints
 no `ok` line. Imports torch, numpy and pathway_tpu_torch only.
@@ -46,7 +63,9 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -344,6 +363,61 @@ def check_flash_decoder_shape(flash_attention, reference_attention) -> dict:
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
         "library_ms": library_ms,
     }
+
+
+def check_padded_shapes(knn_topk, flash_attention, reference_attention) -> None:
+    """The two shape repairs on the card. DeviceKnnIndex at dimensions 2,
+    3 and 6, whose buffer rows are padded to 4 columns for the kernel's
+    16-byte TMA rows, against the same index on the CPU (the plain
+    version), scores atol 1e-4 plus rtol 1e-5; and flash at head dims 24,
+    48 and 80, zero-padded to 32, 64 and 128, against the plain version at
+    the true head dim (bf16 2e-2, f32 1e-4 on rows with a live key)."""
+    from pathway_tpu_torch.ops.kernels.flash_attention import padded_head_dim
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    rng = np.random.default_rng(6)
+    errs = []
+    for d in (2, 3, 6):
+        for metric in ("cos", "ip", "l2sq"):
+            data = rng.standard_normal((5000, d)).astype(np.float32)
+            queries = data[:32] + 0.01 * rng.standard_normal((32, d)).astype(np.float32)
+            on_card = DeviceKnnIndex(d, metric=metric, reserved_space=8192)
+            on_cpu = DeviceKnnIndex(d, metric=metric, reserved_space=8192, device="cpu")
+            for idx, vecs in ((on_card, torch.from_numpy(data).cuda()), (on_cpu, data)):
+                idx.add_batch(range(len(data)), vecs)
+                idx.remove(17)
+            before = knn_topk.launches
+            got, _, _ = on_card.search(queries, K)
+            check(knn_topk.launches == before + 1, f"index d={d}: knn_topk not launched")
+            want, _, _ = on_cpu.search(queries, K)
+            err = float(np.abs(np.sort(got, 1) - np.sort(want, 1)).max())
+            check(err <= 1e-4 + 1e-5 * float(np.abs(want).max()),
+                  f"DeviceKnnIndex d={d} {metric}: score error {err}")
+            check(tuple(on_card.device_buffer.shape) == (8192, d),
+                  f"DeviceKnnIndex d={d}: device_buffer is not [capacity, d]")
+            errs.append(err)
+        log(f"  DeviceKnnIndex d={d} (rows padded to {-(-d // 4) * 4} columns), 5000 rows, "
+            f"Q=32, k={K}, cos / ip / l2sq on the card vs the CPU index: max |score err| "
+            f"{max(errs[-3:]):.3g}  ok")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for d in (24, 48, 80):
+        for dtype, causal, tol in ((torch.bfloat16, False, 2e-2), (torch.bfloat16, True, 2e-2),
+                                   (torch.float32, True, 1e-4)):
+            q, k, v = (
+                torch.randn((4, 8, 512, d), device="cuda", generator=gen).to(dtype)
+                for _ in range(3)
+            )
+            lens = torch.randint(1, 513, (4,), device="cuda", generator=gen)
+            mask = (torch.arange(512, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, mask, causal=causal)
+            check(flash_attention.launches == before + 1, f"flash D={d}: kernel not launched")
+            check(out.shape == q.shape and out.is_contiguous(), f"flash D={d}: bad output")
+            e = live_rows_err(out, reference_attention(q, k, v, mask, d ** -0.5, causal), mask)
+            check(e <= tol, f"flash_attention D={d} {dtype} causal={causal}: error {e}")
+            errs.append(e)
+        log(f"  flash_attention D={d} (the D={padded_head_dim(d)} kernel) [4,8,512,{d}] vs plain: "
+            f"max |err| on live rows bf16 {max(errs[-3:-1]):.3g}, f32 causal {errs[-1]:.3g}  ok")
 
 
 # -- phases 4 and 5: the main path -------------------------------------------
@@ -666,6 +740,236 @@ def run_decoder(card: str, flash_attention) -> dict:
     }
 
 
+# -- phase 7: pipelined ingest on the card --------------------------------------
+
+
+def _fill_to_index_size(index, seed: int) -> None:
+    """Random rows from a seeded generator on the card up to N_INDEX live
+    rows (the same rows for the same seed)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fill = N_INDEX - len(index)
+    step = 1 << 17
+    for s in range(0, fill, step):
+        n = min(step, fill - s)
+        vecs = torch.randn((n, DIM), device="cuda", generator=gen)
+        index.add_batch(range(N_DOCS + s, N_DOCS + s + n), vecs)
+    check(len(index) == N_INDEX and index.capacity == N_INDEX, "index not at 2^20 live rows")
+
+
+def run_pipelined_ingest(card: str, docs) -> dict:
+    """The same docs through the async DevicePipeline (worker-thread
+    tokenize + pack, double-buffered dispatch) and through the classic
+    synchronous embed_and_add, each into its own index, as bench.py
+    measures them. Both are then filled to 2^20 rows with the same random
+    rows and searched with the same 32 doc embeddings."""
+    from pathway_tpu_torch.internals.device_pipeline import DevicePipeline
+    from pathway_tpu_torch.models.minilm import SentenceEncoder
+    from pathway_tpu_torch.ops.kernels import flash_attention, knn_topk
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
+
+    encoder = SentenceEncoder("all-MiniLM-L6-v2", max_len=64, seed=0)
+    chunk = N_DOCS // N_CHUNKS
+
+    def fresh():
+        index = DeviceKnnIndex(encoder.dimension, metric="cos", reserved_space=N_DOCS)
+        return index, FusedEmbedSearch(encoder, index)
+
+    classic_index, classic = fresh()
+    classic.embed_and_add(range(chunk), docs[:chunk])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, N_DOCS, chunk):
+        classic.embed_and_add(range(s, s + chunk), docs[s : s + chunk])
+    torch.cuda.synchronize()
+    classic_rate = N_DOCS / (time.perf_counter() - t0)
+
+    pipe_index, fused = fresh()
+    pipe = DevicePipeline(
+        prepare=lambda item: fused.prepare_batch(*item),
+        dispatch=fused.dispatch_batch,
+        quiesce=torch.cuda.synchronize,
+        name="chip-smoke-ingest",
+    )
+    try:
+        pipe.submit((range(chunk), docs[:chunk]))  # warm-up
+        pipe.drain()
+        pipe.take_aux_spans()  # the warm-up's
+        t0 = time.perf_counter()
+        for s in range(0, N_DOCS, chunk):
+            pipe.submit((range(s, s + chunk), docs[s : s + chunk]))
+        pipe.drain()
+        pipe_rate = N_DOCS / (time.perf_counter() - t0)
+        stats = pipe.stats()
+        # where the pipelined run's time went: host seconds per stage, summed
+        # over batches (prep runs on two threads, so its sum can exceed the wall)
+        spent: Counter = Counter()
+        for kind, _start, dur, _rows in pipe.take_aux_spans():
+            spent[kind] += dur
+    finally:
+        pipe.close()
+    check(stats["submitted"] == stats["dispatched"] == N_CHUNKS + 1 and not pipe.take_failed(),
+          f"pipeline: {stats}")
+    check(len(pipe_index) == len(classic_index) == N_DOCS, "pipelined / classic index sizes")
+    ingest_launches = {"knn_topk": knn_topk.launches, "flash_attention": flash_attention.launches}
+    log(f"  ingest {N_DOCS} docs (max_len 64): DevicePipeline {pipe_rate:.1f} docs/s "
+        f"(packed slabs, pad_waste_ratio {stats['pad_waste_ratio']:.4f}), classic embed_and_add "
+        f"{classic_rate:.1f} docs/s [{card}]")
+    log("  DevicePipeline stage sums over the timed run (host s): " + ", ".join(
+        f"{kind.split(':')[1]} {spent[kind]:.4f}"
+        for kind in ("pipeline:prep", "pipeline:dispatch", "pipeline:wait", "pipeline:device",
+                     "pipeline:drain")
+    ) + f"; wall {N_DOCS / pipe_rate:.4f}")
+
+    # the two ingest routes embed the same docs in bf16, packed and padded:
+    # their vectors agree to a rounding, not bit for bit
+    pipe_rows, classic_rows = (
+        idx.device_buffer[[idx._slot_of_key[k] for k in range(N_DOCS)]]
+        for idx in (pipe_index, classic_index)
+    )
+    cos = torch.nn.functional.cosine_similarity(pipe_rows, classic_rows, dim=1)
+    check(float(cos.min()) >= 0.99, f"pipelined vs classic doc vectors: min cosine {cos.min()}")
+    for index in (pipe_index, classic_index):
+        _fill_to_index_size(index, seed=2)
+    picks = random.Random(7).sample(range(N_DOCS), N_QUERIES)
+    queries = encoder.encode([docs[i] for i in picks])
+    got = pipe_index.search_keys(queries, K)
+    want = classic_index.search_keys(queries, K)
+    # a swap in the top-k is a near-tie when its scores lie within twice the
+    # largest score drift between the two routes' doc vectors (over every
+    # query and doc), plus the kernel's f32 rounding
+    qn = torch.nn.functional.normalize(torch.as_tensor(queries, device="cuda").float(), dim=1)
+    drift = float((qn @ (torch.nn.functional.normalize(pipe_rows.float(), dim=1)
+                         - torch.nn.functional.normalize(classic_rows.float(), dim=1)).T).abs().max())
+    tie_tol = 2 * drift + 1e-5
+    exact = 0
+    for r, (g, w, pick) in enumerate(zip(got, want, picks)):
+        check(g[0][0] == pick and w[0][0] == pick, f"query {r}: not its own doc at rank 1")
+        gk, wk = {k for k, _ in g}, {k for k, _ in w}
+        kth = min(w[-1][1], g[-1][1])
+        swapped = [s for k, s in g if k not in wk] + [s for k, s in w if k not in gk]
+        check(all(abs(s - kth) <= tie_tol for s in swapped),
+              f"query {r}: top-{K} keys differ beyond near-ties: {g} vs {w}")
+        exact += [k for k, _ in g] == [k for k, _ in w]
+    log(f"  over {N_INDEX} rows: {N_QUERIES}/{N_QUERIES} self-retrievals at rank 1 in both; "
+        f"top-{K} keys equal in {exact}/{N_QUERIES} rows in order, the rest within near-ties "
+        f"of {tie_tol:.3g} (pipelined vs classic doc vectors: min cosine {float(cos.min()):.6f}, "
+        f"largest score drift {drift:.3g})  ok")
+    return {"pipelined_docs_per_s": pipe_rate, "classic_docs_per_s": classic_rate,
+            "pad_waste_ratio": stats["pad_waste_ratio"], "ingest_launches": ingest_launches}
+
+
+# -- phase 8: the framework path on the card's host ------------------------------
+
+
+def _wordcount_input(directory: str, n_rows: int, n_files: int = 8, vocab: int = 10_000) -> Counter:
+    """benchmarks/wordcount_bench.py's input: {"word": ...} json lines from
+    random.Random(7) over `vocab` words, in `n_files` files."""
+    rng = random.Random(7)
+    words = [f"word{i}" for i in range(vocab)]
+    per_file = -(-n_rows // n_files)
+    counts: Counter = Counter()
+    for f in range(n_files):
+        chosen = [rng.choice(words) for _ in range(min(per_file, n_rows - f * per_file))]
+        counts.update(chosen)
+        with open(os.path.join(directory, f"in_{f}.jsonl"), "w") as fh:
+            fh.write("\n".join(json.dumps({"word": w}) for w in chosen))
+    return counts
+
+
+# a stream with retractions, its per-group sums, and the sums' expected
+# (group, sum, time, is_addition) deltas
+_STREAM = """
+    id | g | v | __time__ | __diff__
+    1  | a | 1 | 2        | 1
+    2  | b | 2 | 2        | 1
+    3  | a | 3 | 4        | 1
+    1  | a | 1 | 6        | -1
+    4  | b | 5 | 6        | 1
+    2  | b | 2 | 8        | -1
+"""
+_STREAM_SUMS = [
+    ("a", 1, 2, True), ("b", 2, 2, True),
+    ("a", 1, 4, False), ("a", 4, 4, True),
+    ("a", 4, 6, False), ("a", 3, 6, True), ("b", 2, 6, False), ("b", 7, 6, True),
+    ("b", 7, 8, False), ("b", 5, 8, True),
+]
+
+
+def run_framework(card: str) -> dict:
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+
+    # the engine's keys and rows go through the native wire codec (g++ at
+    # its first use); without it the engine takes the Python codec, so the
+    # rate below is printed only for the native one
+    t0 = time.perf_counter()
+    codec = native.load_wire_ext()
+    check(codec is not None, "the engine's native wire codec did not build or load")
+    log(f"  native wire codec {codec.__name__} built and loaded in {time.perf_counter() - t0:.2f} s")
+
+    n_rows = 1_000_000
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = os.path.join(tmp, "input")
+        os.makedirs(in_dir)
+        expected = _wordcount_input(in_dir, n_rows)
+        out_path = os.path.join(tmp, "out.csv")
+
+        class InputSchema(pw.Schema):
+            word: str
+
+        def wordcount(src: str, dst: str) -> float:
+            pw.G.clear()
+            t0 = time.perf_counter()
+            words = pw.io.fs.read(path=src, schema=InputSchema, format="json", mode="static")
+            result = words.groupby(words.word).reduce(words.word, count=pw.reducers.count())
+            pw.io.csv.write(result, dst)
+            pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+            pw.G.clear()
+            return time.perf_counter() - t0
+
+        def counted(path: str) -> Counter:
+            got: Counter = Counter()
+            with open(path) as fh:
+                header = fh.readline().strip().split(",")
+                check(header == ["word", "count", "time", "diff"], f"wordcount csv header {header}")
+                for line in fh:
+                    word, count, _time, diff = line.strip().split(",")
+                    check(diff == "1", f"static wordcount retracted a row: {line!r}")
+                    got[word] += int(count)
+            return got
+
+        # the same pipeline twice in this process: the first run pays what a
+        # process pays once (lazy imports, the first large heap), the second not
+        first = wordcount(in_dir, out_path)
+        check(counted(out_path) == expected, "first wordcount csv differs from collections.Counter")
+        elapsed = wordcount(in_dir, out_path)
+        got = counted(out_path)
+    check(got == expected, "wordcount csv differs from collections.Counter of the input")
+    log(f"  wordcount (fs json read -> groupby(word).reduce(count) -> csv write), {n_rows} rows in "
+        f"8 files, {len(got)} words, native codec: first run in the process {n_rows / first:.1f} "
+        f"rows/s ({first:.2f} s), second {n_rows / elapsed:.1f} rows/s ({elapsed:.2f} s), each "
+        f"equal to collections.Counter  ok [{card}]")
+
+    pw.G.clear()
+    t = pw.debug.table_from_markdown(_STREAM)
+    sums = t.groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.v))
+    events = []
+    pw.io.subscribe(
+        sums,
+        on_change=lambda key, row, time, is_addition: events.append(
+            (row["g"], row["s"], time, is_addition)
+        ),
+    )
+    pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    pw.G.clear()
+    check(sorted(events, key=repr) == sorted(_STREAM_SUMS, key=repr),
+          f"streaming sums: {events}")
+    check([e[2] for e in events] == sorted(e[2] for e in events), "deltas out of time order")
+    log(f"  streaming table (__time__ / __diff__, 2 retractions) -> groupby sum -> subscribe: "
+        f"{len(events)} deltas, the expected additions and retractions  ok")
+    return {"wordcount_rows_per_s": n_rows / elapsed, "wordcount_first_rows_per_s": n_rows / first}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -698,6 +1002,7 @@ def main() -> int:
     knn_row = check_knn(knn_topk, reference_knn_topk, gen)
     flash_row = check_flash(flash_attention, reference_attention, gen)
     decoder_shape = check_flash_decoder_shape(flash_attention, reference_attention)
+    check_padded_shapes(knn_topk, flash_attention, reference_attention)
 
     log("[4] main path: ingest, 2^20-row index, retrieval")
     docs = make_docs(N_DOCS, random.Random(0))
@@ -725,9 +1030,37 @@ def main() -> int:
     flash_row["shapes"] = [decoder_shape]
     log(f"  flash_attention launches on the decoder path (generate): {decoder['launches']}")
     log(f"  decoder phase {time.perf_counter() - t_phase:.1f} s")
+
+    log("[7] pipelined ingest on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    ingest = run_pipelined_ingest(card, docs)["ingest_launches"]
+    search_knn = knn_topk.launches - ingest["knn_topk"]
+    check(search_knn > 0, "the searches of the pipelined index launched no knn_topk kernel")
+    knn_row["launches_by_path"] = {"main": knn_row["launches"],
+                                   "pipelined_ingest": ingest["knn_topk"],
+                                   "pipelined_index_search": search_knn}
+    flash_row["launches_by_path"] = {"long_docs": flash_row["launches"],
+                                     "decoder": decoder["launches"],
+                                     "pipelined_ingest": ingest["flash_attention"]}
+    log(f"  launches on the two ingest runs: knn_topk {ingest['knn_topk']} (ingest adds rows, it "
+        f"does not search), flash_attention {ingest['flash_attention']} (L = 64, under the flash "
+        f"gate); on the searches of the two indexes: knn_topk {search_knn}")
+
+    log("[8] the framework path on the card's host")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    run_framework(card)
+    check(knn_topk.launches == 0 and flash_attention.launches == 0,
+          "the host framework path launched a kernel")
+    log("  kernel launches on the framework path: 0 (host only)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    log("[7] summary")
+    log("[9] summary")
     log(card)
     log(json.dumps({"kernels": [knn_row, flash_row]}))
     log(json.dumps({

@@ -4,8 +4,10 @@ Counterpart of pathway_tpu/ops/kernels/flash_attention.py. The kernel
 (csrc/flash_attention.cu) runs online-softmax attention with f32 softmax
 state and never writes the [L, L] scores; bf16 inputs go through the
 tensor cores (wgmma, with k and v brought in by TMA), f32 inputs through
-a simple CUDA-core kernel. Head dims 16, 32, 64 (the encoders) and 128
-(the decoder's prefill).
+a simple CUDA-core kernel. The kernel has instances at head dims 16, 32,
+64 (the encoders) and 128 (the decoder's prefill); the wrapper pads any
+other head dim up to 128 with zero columns, which add nothing to q k^T or
+to P v, and slices the output back.
 `reference_attention` is the
 plain version, the same function as the JAX package's
 `_reference_attention`; the wrapper takes it only for tensors on the CPU.
@@ -26,6 +28,19 @@ from pathway_tpu_torch.ops.kernels import _build
 from pathway_tpu_torch.ops.kernels.knn_topk import NEG_INF
 
 _HEAD_DIMS = (16, 32, 64, 128)
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernel instance's head dim for a head dim of `d`."""
+    for dim in _HEAD_DIMS:
+        if d <= dim:
+            return dim
+    raise ValueError(f"flash_attention: head dim {d} above {_HEAD_DIMS[-1]} has no kernel")
+
+
+def pad_head_dim(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """[..., D] -> [..., d_pad] with zero columns, contiguous."""
+    return torch.nn.functional.pad(x, (0, d_pad - x.shape[-1])).contiguous()
 
 
 def reference_attention(q, k, v, kv_mask, sm_scale: float, causal: bool):
@@ -67,25 +82,27 @@ def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale=Non
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape or tuple(kv_mask.shape) != (b, lk):
         raise ValueError("flash_attention: q, k, v and kv_mask disagree in shape")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {_HEAD_DIMS}")
+    d_pad = padded_head_dim(d)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on 16-byte boundaries")
     if k.device != q.device or v.device != q.device or kv_mask.device != q.device:
         raise ValueError("flash_attention: inputs must be on one device")
+    if d_pad != d:
+        # sm_scale stays 1/sqrt(D) of the true D
+        q, k, v = (pad_head_dim(t, d_pad) for t in (q, k, v))
     mask = kv_mask.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _build.load()
     err = lib.pwt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, h, lq, lk, d, float(sm_scale), int(bool(causal)),
+        b, h, lq, lk, d_pad, float(sm_scale), int(bool(causal)),
         int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if d_pad == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0

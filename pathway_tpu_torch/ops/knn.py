@@ -1,6 +1,7 @@
 """Brute-force KNN on the card (counterpart of pathway_tpu/ops/knn.py).
 
-  * The index buffer is device-resident, f32 [capacity, d] plus a bool
+  * The index buffer is device-resident, f32 [capacity, d] (each row
+    padded with zero columns to 16 bytes for the kernel) plus a bool
     `valid`, with capacity in powers of two. Adds and removes are staged on
     the host and flushed as one indexed assignment before the next search.
   * `DeviceKnnIndex.search` goes through the hand-written knn_topk kernel
@@ -111,9 +112,14 @@ class DeviceKnnIndex:
             raise ValueError(f"unknown metric {metric!r}")
         self.device = resolve_device(device)
         self.d = dimensions
+        # the buffer's rows are padded with zero columns to 16 bytes, as the
+        # kernel's TMA loads need; zeros change no ip, cos or l2sq score
+        self._d_pad = -(-dimensions // 4) * 4
         self.metric = metric
         self.capacity = max(8, next_pow2(reserved_space))
-        self._buffer = torch.zeros((self.capacity, self.d), dtype=torch.float32, device=self.device)
+        self._buffer = torch.zeros(
+            (self.capacity, self._d_pad), dtype=torch.float32, device=self.device
+        )
         self._valid_dev = torch.zeros((self.capacity,), dtype=torch.bool, device=self.device)
         self._slot_of_key: dict = {}
         self._key_of_slot: dict = {}
@@ -154,7 +160,9 @@ class DeviceKnnIndex:
             slots = torch.tensor(
                 [self._assign_slot(k) for k in keys], dtype=torch.int64
             ).to(self.device)
-            vectors = self._normalize(vectors.to(device=self.device, dtype=torch.float32))
+            vectors = self._pad_cols(
+                self._normalize(vectors.to(device=self.device, dtype=torch.float32))
+            )
             # in place: the buffer is updated where it lies (the JAX package
             # donates the old buffer to the scatter for the same effect)
             self._buffer.index_copy_(0, slots, vectors)
@@ -163,6 +171,12 @@ class DeviceKnnIndex:
         vectors = self._normalize(np.asarray(vectors, dtype=np.float32))
         for key, vec in zip(keys, vectors):
             self._dirty[self._assign_slot(key)] = vec
+
+    def _pad_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, d] -> [B, d_pad] with zero columns."""
+        if self._d_pad == self.d:
+            return x
+        return torch.nn.functional.pad(x, (0, self._d_pad - self.d))
 
     def _assign_slot(self, key) -> int:
         slot = self._slot_of_key.get(key)
@@ -184,7 +198,9 @@ class DeviceKnnIndex:
 
     def _grow(self) -> None:
         new_capacity = self.capacity * 2
-        buffer = torch.zeros((new_capacity, self.d), dtype=torch.float32, device=self.device)
+        buffer = torch.zeros(
+            (new_capacity, self._d_pad), dtype=torch.float32, device=self.device
+        )
         valid = torch.zeros((new_capacity,), dtype=torch.bool, device=self.device)
         buffer[: self.capacity] = self._buffer
         valid[: self.capacity] = self._valid_dev
@@ -196,11 +212,11 @@ class DeviceKnnIndex:
         if not self._dirty:
             return
         slots = np.fromiter(self._dirty.keys(), dtype=np.int64, count=len(self._dirty))
-        vectors = np.zeros((len(slots), self.d), dtype=np.float32)
+        vectors = np.zeros((len(slots), self._d_pad), dtype=np.float32)
         slot_valid = np.zeros((len(slots),), dtype=bool)
         for i, vec in enumerate(self._dirty.values()):
             if vec is not None:
-                vectors[i] = vec
+                vectors[i, : self.d] = vec
                 slot_valid[i] = True
         at = torch.from_numpy(slots).to(self.device)
         # one in-place indexed write per flush (the JAX package's donated
@@ -211,9 +227,10 @@ class DeviceKnnIndex:
 
     @property
     def device_buffer(self) -> torch.Tensor:
-        """A copy: later flushes update the live buffer in place."""
+        """A copy of the first d columns: later flushes update the live
+        buffer in place."""
         self._flush()
-        return self._buffer.clone()
+        return self._buffer[:, : self.d].clone()
 
     @property
     def device_valid(self) -> torch.Tensor:
@@ -237,8 +254,10 @@ class DeviceKnnIndex:
                 {},
             )
         self._flush()
-        padded = torch.zeros((next_pow2(q), self.d), dtype=torch.float32, device=self.device)
-        padded[:q] = queries.to(self.device)
+        padded = torch.zeros(
+            (next_pow2(q), self._d_pad), dtype=torch.float32, device=self.device
+        )
+        padded[:q, : self.d] = queries.to(self.device)
         top_scores, top_idx = _search(
             self._buffer, self._valid_dev, padded, min(k, self.capacity), self.metric
         )
@@ -326,7 +345,10 @@ class FusedEmbedSearch:
                 torch.from_numpy(ids.astype(np.int32)).to(self.device),
                 torch.from_numpy(mask.astype(np.int32)).to(self.device),
             )
-            scores = _similarity(self.index._buffer, self.index._valid_dev, emb, self.index.metric)
+            scores = _similarity(
+                self.index._buffer, self.index._valid_dev, self.index._pad_cols(emb),
+                self.index.metric,
+            )
             top_scores, top_idx = torch.topk(scores, k, dim=1)
         return torch.cat([top_scores, top_idx.float()], dim=1)
 

@@ -6,7 +6,8 @@ no JAX, and the CPU tests (tests/test_torch_*.py) already hold the plain
 versions against the JAX package. Here each kernel is held against its
 plain version on the same CUDA tensors, at shapes the main path does not
 reach (ragged N and D, several query groups, k = N, fewer live slots than
-k, duplicated rows, every slot dead, Lq != Lk, every head dim). Run on the card with
+k, duplicated rows, every slot dead, Lq != Lk, every head dim, and head
+dims and index widths that only padding makes fit). Run on the card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -182,6 +183,13 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (2, 2, 1, 77, 128, torch.float32, False),
         (2, 3, 130, 301, 128, torch.float32, True),
         (1, 2, 300, 300, 128, torch.float32, False),  # one batch row, every key live
+        # head dims without a kernel instance: zero-padded to the next one
+        (2, 3, 77, 77, 24, torch.bfloat16, False),
+        (2, 3, 300, 300, 24, torch.float32, True),
+        (2, 4, 200, 200, 48, torch.bfloat16, True),
+        (2, 3, 77, 77, 48, torch.float32, False),
+        (2, 4, 300, 300, 80, torch.bfloat16, False),
+        (2, 2, 130, 301, 80, torch.float32, True),
     ],
 )
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
@@ -199,7 +207,7 @@ def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):
-    q = torch.zeros((1, 2, 8, 48), device=card)
+    q = torch.zeros((1, 2, 8, 160), device=card)  # above the largest instance
     with pytest.raises(ValueError, match="head dim"):
         kernels.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 8, 32), device=card)
@@ -264,6 +272,51 @@ def test_index_on_card_matches_cpu(card, metric):
     for g, w in zip(got, want):
         assert [key for key, _ in g] == [key for key, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("d", [2, 3, 6])
+@pytest.mark.parametrize("metric", ["cos", "ip", "l2sq"])
+def test_index_on_card_takes_any_dimensions(card, metric, d):
+    # the buffer is padded to 4 columns for the kernel; the framework's own
+    # index tests build dimensions=2
+    rng = np.random.default_rng(d)
+    data = rng.standard_normal((200, d)).astype(np.float32)
+    got_idx = DeviceKnnIndex(d, metric=metric, reserved_space=16, device=card)
+    want_idx = DeviceKnnIndex(d, metric=metric, reserved_space=16, device="cpu")
+    for idx, vecs in ((got_idx, torch.from_numpy(data[50:]).to(card)), (want_idx, data[50:])):
+        for i in range(50):
+            idx.add(i, data[i])
+        idx.add_batch(range(50, 200), vecs)
+        idx.remove(7)
+    assert got_idx.device_buffer.shape == (256, d)
+    # the two add paths assign slots in different orders: compare by key
+    keys = [k for k in range(200) if k != 7]
+    got_rows, want_rows = (
+        idx.device_buffer[[idx._slot_of_key[k] for k in keys]] for idx in (got_idx, want_idx)
+    )
+    np.testing.assert_allclose(got_rows.cpu().numpy(), want_rows.numpy(), atol=1e-6)
+    before = kernels.knn_topk.launches
+    queries = data[:5] + 0.01 * rng.standard_normal((5, d)).astype(np.float32)
+    got = got_idx.search(queries, 4)
+    assert kernels.knn_topk.launches == before + 1
+    want = want_idx.search(queries, 4)
+    np.testing.assert_allclose(
+        np.sort(got[0], axis=1), np.sort(want[0], axis=1), atol=1e-4, rtol=1e-5
+    )
+
+
+def test_encoder_at_head_dim_48_takes_flash(card):
+    # a checkpoint's head dim need not have a kernel instance: 96 / 2 = 48
+    config = TransformerConfig(
+        vocab_size=512, hidden=96, layers=1, heads=2, mlp_dim=128, max_len=512, dtype="float32"
+    )
+    docs = [" ".join(f"w{(i * 5 + j) % 89}" for j in range(400)) for i in range(3)]
+    gpu = SentenceEncoder("hd48", config=config, max_len=512, device=card)
+    cpu = SentenceEncoder("hd48", config=config, max_len=512, device="cpu")
+    before = kernels.flash_attention.launches
+    got = gpu.encode(docs)
+    assert kernels.flash_attention.launches == before + 1
+    np.testing.assert_allclose(got, cpu.encode(docs), atol=1e-4, rtol=0)
 
 
 def test_fused_embed_search_on_card_matches_cpu(card):

@@ -67,6 +67,10 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
+        "import pathway_tpu_torch as pw\n"
+        "import pathway_tpu_torch.internals.runner, pathway_tpu_torch.io.fs\n"
+        "import pathway_tpu_torch.debug, pathway_tpu_torch.internals.device_pipeline\n"
+        "pw.run, pw.io.fs.read, pw.debug.compute_and_print, pw.MonitoringLevel\n"
         "import pathway_tpu_torch.ops.knn, pathway_tpu_torch.models.minilm\n"
         "import pathway_tpu_torch.models.hf_loader, pathway_tpu_torch.models.convert\n"
         "import pathway_tpu_torch.models.decoder, pathway_tpu_torch.models.decoder_lm\n"

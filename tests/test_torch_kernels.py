@@ -126,6 +126,40 @@ def test_flash_plain_matches_jax_reference_all_rows(causal):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d, d_pad", [(24, 32), (48, 64), (80, 128), (8, 16)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_head_dim_padding_leaves_the_plain_result(d, d_pad, causal):
+    """What the wrapper does on the card for a head dim without a kernel
+    instance: zero columns to the next instance, 1/sqrt(true D), then the
+    first D columns. Here through the plain version, against it at the
+    true D and against the JAX kernel (which pads to 128 itself)."""
+    from pathway_tpu_torch.ops.kernels.flash_attention import pad_head_dim, padded_head_dim
+
+    q, k, v, mask = (torch.from_numpy(a) for a in _flash_inputs(np.float32, seed=d, d=d))
+    assert padded_head_dim(d) == d_pad
+    padded = [pad_head_dim(t, d_pad) for t in (q, k, v)]
+    assert all(t.shape[-1] == d_pad and t.is_contiguous() for t in padded)
+    got = reference_attention(*padded, mask, d ** -0.5, causal)[..., :d]
+    want = reference_attention(q, k, v, mask, d ** -0.5, causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    ref = np.asarray(
+        jax_flash(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+            jnp.asarray(mask.numpy()), causal=causal, block_q=16, block_k=16,
+        )
+    )
+    live = mask.numpy().sum(axis=1) > 0
+    np.testing.assert_allclose(got.numpy()[live], ref[live], atol=1e-4, rtol=0)
+
+
+def test_flash_head_dim_above_the_largest_instance_has_no_kernel():
+    from pathway_tpu_torch.ops.kernels.flash_attention import padded_head_dim
+
+    assert padded_head_dim(128) == 128
+    with pytest.raises(ValueError, match="head dim"):
+        padded_head_dim(129)
+
+
 def test_flash_bf16_plain_keeps_dtype():
     q, k, v, mask = _flash_inputs(np.float32, seed=5)
     t = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]

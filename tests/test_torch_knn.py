@@ -66,6 +66,32 @@ def test_index_add_remove_grow_search_matches_jax(metric):
     _assert_rows_match(p.search_keys(queries[0], 3), j.search_keys(queries[0], 3))
 
 
+@pytest.mark.parametrize("d", [2, 3, 6])
+@pytest.mark.parametrize("metric", ["cos", "ip", "l2sq"])
+def test_index_at_any_dimensions_matches_jax(metric, d):
+    """The buffer keeps its rows padded to 4 columns for the kernel; the
+    accessors and the scores are those of the true d."""
+    rng = np.random.default_rng(d)
+    data = rng.standard_normal((30, d)).astype(np.float32)
+    j = jax_knn.DeviceKnnIndex(d, metric=metric, reserved_space=8)
+    p = port_knn.DeviceKnnIndex(d, metric=metric, reserved_space=8, device="cpu")
+    for idx in (j, p):
+        for i in range(10):
+            idx.add(i, data[i])
+        idx.add_batch(range(10, 30), data[10:])
+        idx.remove(4)
+    p.add_batch([30, 31], torch.from_numpy(data[:2] * 2.0))
+    j.add_batch([30, 31], data[:2] * 2.0)
+    assert tuple(p.device_buffer.shape) == (p.capacity, d)
+    np.testing.assert_allclose(
+        p.device_buffer.numpy(), np.asarray(j.device_buffer), atol=1e-6
+    )
+    queries = data[:4] + 0.05 * rng.standard_normal((4, d)).astype(np.float32)
+    got_s, _, _ = p.search(queries, 3)
+    want_s, _, _ = j.search(queries, 3)
+    np.testing.assert_allclose(np.sort(got_s, 1), np.sort(np.asarray(want_s), 1), atol=1e-4)
+
+
 @pytest.mark.parametrize("metric", ["cos", "l2sq"])
 def test_index_search_raw_contract(metric):
     rng = np.random.default_rng(1)
