@@ -42,7 +42,21 @@ width with random weights from a seed:
      1,000,000 rows in 8 files, checked against collections.Counter, and a
      streaming table (`__time__` / `__diff__`) -> pw.io.subscribe checked
      against its expected additions and retractions;
-  9. the card's line, one `kernels` JSON line, then the `ok` JSON line.
+  9. the retrieval framework path, run before phase 8 so that the
+     wordcount's engine, which `pw.run` keeps alive, does not weigh on it:
+     (a) bench.py's framework path through `pathway_tpu_torch`: 16,384
+     docs in 8 jsonlines files (streaming, one commit per file) ->
+     DocumentStore -> BruteForceKnnFactory(SentenceTransformerEmbedder(
+     max_len=64)) at full MiniLM-L6 width -> retrieve_query on a python
+     connector subject, every default on: docs/s embedded+indexed (one
+     run after a warm-up), p50 / p90 of 32 sequential queries and qps at
+     64 concurrent ones, the live-utilization window's bound state and
+     stage sums at the end of the ingest and the health controller's
+     actions, the answers checked against
+     FusedEmbedSearch.search_texts on the same index; (b) DocumentStore
+     over a pw.udf embedder of seeded unit vectors (65,536 docs, the
+     vector index impl, knn_topk), against a numpy brute force;
+ 10. the card's line, one `kernels` JSON line, then the `ok` JSON line.
 
 Phase 3 also holds the two shape repairs: DeviceKnnIndex at dimensions
 2, 3 and 6 (rows padded to 16 bytes for the kernel) against the same
@@ -60,10 +74,12 @@ import gc
 import json
 import math
 import os
+import queue
 import random
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -858,6 +874,310 @@ def run_pipelined_ingest(card: str, docs) -> dict:
             "pad_waste_ratio": stats["pad_waste_ratio"], "ingest_launches": ingest_launches}
 
 
+# -- phase 9: the retrieval framework path -------------------------------------
+
+N_UDF_DOCS = 65536
+
+
+class _PhaseThread(threading.Thread):
+    """A daemon thread that keeps the exception its target raised."""
+
+    def __init__(self, target, args):
+        super().__init__(daemon=True)
+        self._fn, self._args, self.error = target, args, None
+
+    def run(self) -> None:
+        try:
+            self._fn(*self._args)
+        except BaseException as exc:  # noqa: BLE001 — re-raised by _get
+            self.error = exc
+
+
+def _get(q: queue.Queue, runner: _PhaseThread, timeout: float = 300.0):
+    """q.get that fails at once if the engine's thread died."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            return q.get(timeout=0.5)
+        except queue.Empty:
+            if runner.error is not None:
+                raise RuntimeError("the framework pipeline failed") from runner.error
+            check(runner.is_alive(), "the framework pipeline stopped without an answer")
+            check(time.perf_counter() < deadline, f"no answer within {timeout} s")
+
+
+def _retrieval_pipeline(docs_path: str, n_docs: int, query_q, resp_q, count_q, device) -> None:
+    """bench.py's run_pipeline through pathway_tpu_torch: jsonlines files
+    (streaming, one commit per file) -> DocumentStore over
+    BruteForceKnnFactory(SentenceTransformerEmbedder) -> retrieve_query on
+    queries from a python connector subject."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    class QuerySubject(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            while True:
+                item = query_q.get()
+                if item is None:
+                    return
+                self.next(**item)
+                self.commit()
+
+    pw.G.clear()
+    docs = pw.io.jsonlines.read(
+        docs_path,
+        schema=pw.schema_from_types(data=str),
+        mode="streaming",
+        batch_per_file=True,
+        refresh_interval=3600.0,  # every file exists up front
+    )
+    embedder = SentenceTransformerEmbedder(max_len=64, device=device)
+    factory = BruteForceKnnFactory(
+        dimensions=embedder.get_embedding_dimension(), embedder=embedder, reserved_space=n_docs
+    )
+    store = DocumentStore(docs, retriever_factory=factory)
+    queries = pw.io.python.read(QuerySubject(), schema=DocumentStore.RetrieveQuerySchema)
+    clock = time.perf_counter  # the callbacks' `time` argument shadows the module
+
+    def on_result(key, row, time, is_addition):  # noqa: A002
+        if is_addition:
+            resp_q.put((clock(), row["result"]))
+
+    pw.io.subscribe(store.retrieve_query(queries), on_change=on_result)
+
+    # ingest progress from the engine itself: no device sync mid-ingest
+    def on_count(key, row, time, is_addition):  # noqa: A002
+        if is_addition:
+            count_q.put((clock(), row["c"]))
+
+    pw.io.subscribe(store.chunked_docs.groupby().reduce(c=pw.reducers.count()), on_change=on_count)
+    pw.run(autocommit_duration_ms=25, monitoring_level=pw.MonitoringLevel.NONE)
+
+
+def _ask(query_q, resp_q, runner, text: str):
+    query_q.put({"query": text, "k": K, "metadata_filter": None, "filepath_globpattern": None})
+    return _get(resp_q, runner, timeout=120.0)
+
+
+def _drive_retrieval(docs, docs_path: str, device) -> dict:
+    """bench.py's _drive: one streaming run. docs/s is the docs over the
+    time from the engine's start to the answer of a probe query for the
+    last doc; then 32 sequential queries, each its own engine batch, and
+    64 concurrent ones."""
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.internals import utilization
+
+    query_q: queue.Queue = queue.Queue()
+    resp_q: queue.Queue = queue.Queue()
+    count_q: queue.Queue = queue.Queue()
+    t_start = time.perf_counter()
+    runner = _PhaseThread(
+        _retrieval_pipeline, (docs_path, len(docs), query_q, resp_q, count_q, device)
+    )
+    runner.start()
+    while True:
+        t_counted, count = _get(count_q, runner)
+        if count >= len(docs):
+            break
+    t_ingested, result = _ask(query_q, resp_q, runner, docs[-1])
+    window = utilization.tracker().snapshot()  # the ingest's bound state
+    top = result.value[0] if result.value else None
+    check(top is not None and top["text"] == docs[-1],
+          f"the probe query for the last doc found {top} at rank 1")
+    queries = make_docs(N_QUERIES, random.Random(11))
+    lat, answers = [], []
+    for q in queries:
+        tq = time.perf_counter()
+        t_resp, res = _ask(query_q, resp_q, runner, q)
+        lat.append((t_resp - tq) * 1000)
+        answers.append(res.value)
+    n_concurrent = 64
+    tq0 = time.perf_counter()
+    for q in make_docs(n_concurrent, random.Random(17)):
+        query_q.put({"query": q, "k": K, "metadata_filter": None, "filepath_globpattern": None})
+    last = tq0
+    for _ in range(n_concurrent):
+        last, _ = _get(resp_q, runner, timeout=120.0)
+    qps = n_concurrent / max(last - tq0, 1e-9)
+    query_q.put(None)  # closes the query subject
+    engine = pw_runner.last_engine()  # the docs source streams on: stop it
+    engine.terminate_flag.set()
+    runner.join(timeout=60)
+    check(not runner.is_alive() and runner.error is None, f"pipeline end: {runner.error!r}")
+    return {"docs_per_s": len(docs) / (t_ingested - t_start),
+            "counted_s": t_counted - t_start, "probe_s": t_ingested - t_counted,
+            "p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+            "qps_64": qps, "queries": queries, "answers": answers, "engine": engine,
+            "window": window}
+
+
+def _index_node(engine):
+    from pathway_tpu_torch.engine.index_node import ExternalIndexNode
+
+    (node,) = [n for n in engine.nodes if isinstance(n, ExternalIndexNode)]
+    return node
+
+
+def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dict:
+    """9a: bench.py's framework path through pathway_tpu_torch, every
+    default on: a warm-up run, bench.py's collect-and-freeze, then the
+    measured run with the live-utilization window scoped to it (as
+    bench.py scopes its measured phases), so its bound state and the
+    health controller's actions read this run alone. Its answers are
+    checked against FusedEmbedSearch.search_texts on its index."""
+    from pathway_tpu_torch.internals import health, utilization
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.internals.device_probe import device_degraded
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import _FusedKnnIndexImpl
+
+    docs = make_docs(n_docs, random.Random(7))
+    with tempfile.TemporaryDirectory() as tmp:
+        docs_path = os.path.join(tmp, "docs")
+        os.makedirs(docs_path)
+        per_file = n_docs // N_CHUNKS
+        for f in range(N_CHUNKS):
+            with open(os.path.join(docs_path, f"docs_{f:03d}.jsonl"), "w") as fh:
+                for d in docs[f * per_file : (f + 1) * per_file]:
+                    fh.write(json.dumps({"data": d}) + "\n")
+        warm = _drive_retrieval(docs, docs_path, device)
+        del warm
+        pw_runner._last_engine = None
+        # as bench.py: the warm-up's dead objects collected once and the
+        # survivors kept out of later collections
+        gc.collect()
+        gc.freeze()
+        try:
+            utilization.reset_window()
+            actions = dict(health.controller().status()["actions"])
+            facts = _drive_retrieval(docs, docs_path, device)
+            after = health.controller().status()["actions"]
+            throttles = after["throttle"] - actions["throttle"]
+            relaxes = after["relax"] - actions["relax"]
+        finally:
+            gc.unfreeze()
+    node = _index_node(facts["engine"])
+    impl = node.index
+    check(isinstance(impl, _FusedKnnIndexImpl), f"the index impl is {type(impl).__name__}")
+    check(len(impl.knn) == n_docs, f"{len(impl.knn)} rows in the index, {n_docs} docs")
+    stats = impl._pipeline.stats() if impl._pipeline is not None else {}
+    check(stats.get("dispatched", 0) > 0 and not impl._pipeline_broken,
+          f"the DevicePipeline ran no batch: {stats}")
+    check(not device_degraded(), "the device monitor reports the card degraded")
+
+    # the engine's answers, one query per batch, against one 32-query
+    # search_texts on the same index; a swap is a near-tie when its scores
+    # lie within twice the largest score drift between the two routes
+    # (over every doc both returned), plus f32 rounding
+    direct = impl.fused.search_texts(facts["queries"], K)
+    text_of = {key: row[0] for key, row in node.data_rows.items()}
+    drift, exact, pairs = 0.0, 0, []
+    for ans, row in zip(facts["answers"], direct):
+        got = [(d["text"], d["score"]) for d in ans]
+        want = [(text_of[key], score) for key, score in row]
+        check(len(got) == len(want) == K, f"{len(got)} / {len(want)} answers, k = {K}")
+        want_score = dict(want)
+        drift = max([drift] + [abs(s - want_score[t]) for t, s in got if t in want_score])
+        pairs.append((got, want))
+    tie_tol = 2 * drift + 1e-5
+    for r, (got, want) in enumerate(pairs):
+        gk, wk = {t for t, _ in got}, {t for t, _ in want}
+        kth = min(got[-1][1], want[-1][1])
+        swapped = [s for t, s in got if t not in wk] + [s for t, s in want if t not in gk]
+        check(all(abs(s - kth) <= tie_tol for s in swapped),
+              f"query {r}: top-{K} differs from search_texts beyond near-ties: {got} vs {want}")
+        exact += [t for t, _ in got] == [t for t, _ in want]
+    win = facts["window"]
+    spans = win["span_seconds"]
+    log(f"  fs jsonlines ({N_CHUNKS} files, streaming) -> DocumentStore -> BruteForceKnnFactory("
+        f"SentenceTransformerEmbedder(max_len=64)) -> retrieve_query, {n_docs} docs, k = {K}, "
+        f"every default on: docs/s embedded+indexed {facts['docs_per_s']:.1f} (all docs through "
+        f"the DocumentStore at {facts['counted_s']:.3f} s, the probe query's answer "
+        f"{facts['probe_s']:.3f} s later); serving p50 {facts['p50_ms']:.2f} ms, p90 "
+        f"{facts['p90_ms']:.2f} ms over {N_QUERIES} sequential queries, {facts['qps_64']:.1f} qps "
+        f"at 64 concurrent clients [{card}]")
+    log(f"  the ingest's utilization window at the probe's answer: {win['bound_state']} over "
+        f"{win['window_s']:.3f} s, {win['dispatches']} dispatches; host s prep {spans['prep']:.3f}, "
+        f"dispatch {spans['dispatch']:.3f}, wait {spans['wait']:.3f}, device {spans['device']:.3f}; "
+        f"health controller in the run: {throttles} throttle, {relaxes} relax actions")
+    log(f"  probe query: the last doc at rank 1; DevicePipeline {stats['dispatched']} batches, "
+        f"pad_waste_ratio {stats['pad_waste_ratio']:.4f}; device_degraded() False; "
+        f"{N_QUERIES} sequential answers against one search_texts batch: top-{K} equal in order "
+        f"in {exact}/{N_QUERIES}, the rest within near-ties of {tie_tol:.3g} (largest score "
+        f"drift {drift:.3g})  ok")
+    summary = {"docs_per_s": facts["docs_per_s"], "p50_ms": facts["p50_ms"]}
+    # the last run's engine stays referenced by `last_engine()`; drop it so
+    # the next phases do not run beside its state
+    del facts, node, impl
+    pw_runner._last_engine = None
+    gc.collect()
+    return summary
+
+
+def run_udf_docstore(card: str, n_docs: int = N_UDF_DOCS, device=None) -> dict:
+    """9b: DocumentStore over a UDF embedder (the `_KnnIndexImpl` path,
+    knn_topk through DeviceKnnIndex.search_keys): seeded unit vectors of
+    width 384, 32 self-retrievals, top-6 against a numpy brute force."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+    vecs = np.random.default_rng(0).standard_normal((n_docs, DIM)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    texts = [f"udf doc {i}" for i in range(n_docs)]
+
+    @pw.udf(max_batch_size=4096, deterministic=True, return_type=np.ndarray)
+    def embed(batch: list) -> list:
+        return [vecs[int(t.rsplit(" ", 1)[1])] for t in batch]
+
+    picks = random.Random(3).sample(range(n_docs), N_QUERIES)
+    pw.G.clear()
+    t0 = time.perf_counter()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(data=str), [(t,) for t in texts])
+    factory = BruteForceKnnFactory(
+        dimensions=DIM, embedder=embed, reserved_space=n_docs, device=device
+    )
+    store = DocumentStore(docs, retriever_factory=factory)
+    queries = pw.debug.table_from_rows(
+        DocumentStore.RetrieveQuerySchema, [(texts[i], K, None, None) for i in picks]
+    )
+    answers = {}
+
+    def on_result(key, row, time, is_addition):  # noqa: A002
+        if is_addition:
+            answers[key] = row["result"].value
+
+    pw.io.subscribe(store.retrieve_query(queries), on_change=on_result)
+    pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    pw.G.clear()
+    elapsed = time.perf_counter() - t0
+    check(len(answers) == N_QUERIES, f"{len(answers)} answers for {N_QUERIES} queries")
+    by_text = {}
+    for ans in answers.values():
+        check(len(ans) == K, f"{len(ans)} answers, k = {K}")
+        by_text[ans[0]["text"]] = ans
+    err, exact = 0.0, 0
+    for i in picks:
+        ans = by_text.get(texts[i])
+        check(ans is not None, f"query {texts[i]!r} did not find its own doc at rank 1")
+        ids = [int(d["text"].rsplit(" ", 1)[1]) for d in ans]
+        row = vecs[i] @ vecs.T  # the numpy brute force on the same vectors
+        want = np.argsort(-row)[:K]
+        err = max([err] + [abs(d["score"] - float(row[j])) for d, j in zip(ans, ids)])
+        kth = float(row[want[-1]])
+        swapped = [float(row[j]) for j in set(ids) ^ set(int(w) for w in want)]
+        check(all(abs(s - kth) <= 1e-5 for s in swapped),
+              f"query {i}: top-{K} {ids} vs numpy {list(want)} beyond near-ties")
+        exact += ids == [int(w) for w in want]
+    check(err <= 1e-5, f"scores against numpy: max abs err {err:.3g}")
+    log(f"  DocumentStore over a pw.udf embedder (seeded unit vectors, d = {DIM}), {n_docs} docs, "
+        f"{N_QUERIES} queries in one batch: {N_QUERIES}/{N_QUERIES} self-retrievals at rank 1, "
+        f"top-{K} equal to numpy's in order in {exact}/{N_QUERIES}, max score error {err:.3g}; "
+        f"ingest + query {elapsed:.2f} s  ok [{card}]")
+    return {"seconds": elapsed, "max_score_err": err}
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -1049,6 +1369,34 @@ def main() -> int:
         f"does not search), flash_attention {ingest['flash_attention']} (L = 64, under the flash "
         f"gate); on the searches of the two indexes: knn_topk {search_knn}")
 
+    # phase 9 runs before phase 8: `pw.run` keeps its last engine alive
+    # (`last_engine()`), and the wordcount's 1,000,000-row engine is not to
+    # weigh on the retrieval path
+    log("[9a] the retrieval framework path (bench.py's), before phase 8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    run_framework_retrieval(card)
+    retrieval_launches = {"knn_topk": knn_topk.launches, "flash_attention": flash_attention.launches}
+    log(f"  launches on the framework retrieval path: knn_topk {knn_topk.launches} (the fused "
+        f"search is dense similarity + top-k, as the JAX package's), flash_attention "
+        f"{flash_attention.launches} (L = 64, under the flash gate)")
+
+    log("[9b] DocumentStore over a UDF embedder: the vector index impl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    run_udf_docstore(card)
+    check(knn_topk.launches >= 1, "the UDF-embedder DocumentStore launched no knn_topk kernel")
+    knn_row["launches_by_path"]["framework_retrieval"] = retrieval_launches["knn_topk"]
+    knn_row["launches_by_path"]["udf_docstore"] = knn_topk.launches
+    flash_row["launches_by_path"]["framework_retrieval"] = retrieval_launches["flash_attention"]
+    flash_row["launches_by_path"]["udf_docstore"] = flash_attention.launches
+    log(f"  launches on the UDF-embedder DocumentStore: knn_topk {knn_topk.launches}, "
+        f"flash_attention {flash_attention.launches}")
+
     log("[8] the framework path on the card's host")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1060,7 +1408,7 @@ def main() -> int:
     log("  kernel launches on the framework path: 0 (host only)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    log("[9] summary")
+    log("[10] summary")
     log(card)
     log(json.dumps({"kernels": [knn_row, flash_row]}))
     log(json.dumps({

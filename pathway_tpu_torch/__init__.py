@@ -8,6 +8,11 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
     plaintext / python connectors (io/), persistence and `pw.debug`, and
     the async `DevicePipeline` (internals/device_pipeline.py), which
     waits on the card's stream;
+  * UDFs (`pw.udf`, `pw.UDF`; internals/udfs/), the external-index
+    operator (engine/index_node.py), `pw.indexing` (stdlib/indexing/:
+    brute-force KNN on the card, BM25, hybrid, LSH / IVF) and the LLM
+    xpack's embedders, parsers, splitters and `DocumentStore`
+    (`pw.xpacks.llm`);
   * the MiniLM-class encoder and the decoder (models/), the device KNN
     index and the fused embed+search object (ops/knn.py), and
     hand-written Hopper kernels for the JAX package's two Pallas kernels
@@ -26,7 +31,8 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-The stdlib (temporal, indexing, ml, ...), UDFs, xpacks and the static
+The rest of the stdlib (temporal, ordered, stateful, statistical, ml, ...),
+the other xpack modules (llms, rerankers, servers, ...) and the static
 analyzer are not ported yet.
 """
 
@@ -116,6 +122,7 @@ from pathway_tpu_torch.engine.value import (
     ref_scalar,
     wrap_py_object,
 )
+from pathway_tpu_torch.engine.value import ERROR as Error
 
 # -- type aliases -----------------------------------------------------------
 DateTimeNaive = _datetime.datetime
@@ -131,10 +138,21 @@ DURATION = _dt.DURATION
 # -- subpackages ------------------------------------------------------------
 from pathway_tpu_torch import debug  # noqa: E402
 from pathway_tpu_torch import io  # noqa: E402
+from pathway_tpu_torch import stdlib  # noqa: E402
 from pathway_tpu_torch import universes  # noqa: E402
+from pathway_tpu_torch.internals import udfs  # noqa: E402
+from pathway_tpu_torch.internals.udfs import UDF, udf  # noqa: E402
+from pathway_tpu_torch.stdlib import indexing  # noqa: E402
+
+# the pre-rename name of the udfs module, bound as the JAX package binds it
+asynchronous = udfs
 
 
 def __getattr__(name):
+    if name == "xpacks":
+        import pathway_tpu_torch.xpacks as xp
+
+        return xp
     if name == "persistence":
         import pathway_tpu_torch.persistence as p
 

@@ -17,3 +17,14 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """`x` on `device`. A host tensor goes to the card through pinned
+    memory without blocking: a copy from pageable memory synchronises the
+    card's stream, so the caller would wait for every kernel queued before
+    it (the JAX package's transfers are asynchronous)."""
+    device = torch.device(device)
+    if device.type != "cuda" or x.is_cuda:
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

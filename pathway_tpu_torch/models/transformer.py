@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._device import resolve_device, to_device
 from pathway_tpu_torch.ops.kernels.flash_attention import (
     NEG_INF,
     flash_attention,
@@ -314,8 +314,8 @@ def _to_device_ints(x, device) -> torch.Tensor:
     """Wire-narrowed ids / masks / segment ids (int16, or uint16 for
     32768-65535 vocabularies) upcast before any indexing."""
     if torch.is_tensor(x):
-        return x.to(device=device).to(torch.int64)
-    return torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
+        return to_device(x, device).to(torch.int64)
+    return to_device(torch.from_numpy(np.asarray(x).astype(np.int32)), device)
 
 
 class TransformerLM(nn.Module):

@@ -11,18 +11,25 @@
     one upload and one packed [Q, 2k] host copy per query batch. Its search
     is dense similarity + `torch.topk`, as the JAX package's fused path is.
 
-Single device only: mesh sharding is not ported yet, nor are the JAX
-package's memtrack / serving / qtrace / costmodel hooks.
+The JAX package's hooks sit where it places them: serving's result-cache
+invalidation on every add and remove, memtrack's index and encoder-param
+bytes and its ingest note, qtrace's device window around `search_texts`,
+and costmodel's `useful_flops` in `prepare_batch`'s meta. Single device
+only: mesh sharding is not ported yet.
 """
 
 from __future__ import annotations
 
+import time as time_mod
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._device import resolve_device, to_device
+from pathway_tpu_torch.internals import costmodel, memtrack
+from pathway_tpu_torch.internals import qtrace as _qtrace
+from pathway_tpu_torch.internals import serving as _serving
 from pathway_tpu_torch.models.tokenizer import (
     PACK_MAX_SEGMENTS,
     encode_batch,
@@ -126,9 +133,32 @@ class DeviceKnnIndex:
         self._free: list[int] = list(range(self.capacity - 1, -1, -1))
         # staged updates: slot -> vector, or None for an invalidation
         self._dirty: dict[int, np.ndarray | None] = {}
+        if memtrack.ENABLED:
+            self._register_memory()
 
     def __len__(self) -> int:
         return len(self._slot_of_key)
+
+    # -- memory accounting (internals/memtrack.py) --------------------------
+
+    def _register_memory(self) -> None:
+        """(Re-)register the buffer's bytes: f32 rows at the padded width
+        plus the bool valid, at the current capacity. Upserts on the same
+        owner, so _grow calls it again after doubling."""
+        memtrack.tracker().register(
+            "knn_index",
+            self,
+            self.capacity * (4 * self._d_pad + 1),
+            device_span=1,
+            dp_shards=1,
+            capacity=self.capacity,
+            dimensions=self.d,
+        )
+
+    def _note_ingest(self, new_rows: int) -> None:
+        """Feed the ingest-rate forecaster: each new row takes one buffer
+        row."""
+        memtrack.tracker().note_ingest(new_rows, new_rows * (4 * self._d_pad + 1))
 
     def _normalize(self, vectors):
         """cos rows are normalised ONCE at insert time so searches never
@@ -145,6 +175,12 @@ class DeviceKnnIndex:
         vector = np.asarray(vector, dtype=np.float32).reshape(-1)
         if vector.shape[0] != self.d:
             raise ValueError(f"vector dim {vector.shape[0]} != index dim {self.d}")
+        if memtrack.ENABLED and key not in self._slot_of_key:
+            self._note_ingest(1)
+        if _serving.ENABLED:
+            # an insert or an update can enter any cached query's top-k:
+            # a global bump of the result cache's generation
+            _serving.note_index_add(1)
         slot = self._assign_slot(key)
         self._dirty[slot] = self._normalize(vector)
 
@@ -152,23 +188,32 @@ class DeviceKnnIndex:
         """vectors: [B, d], a host array or a tensor. A tensor is written
         from the device with no host round trip."""
         keys = list(keys)
+        if _serving.ENABLED and keys:
+            _serving.note_index_add(len(keys))
         if torch.is_tensor(vectors):
             self._flush()
             new = len(keys) - sum(1 for k in keys if k in self._slot_of_key)
+            if memtrack.ENABLED and new:
+                self._note_ingest(new)
             while len(self._free) < new:
                 self._grow()
-            slots = torch.tensor(
-                [self._assign_slot(k) for k in keys], dtype=torch.int64
-            ).to(self.device)
+            slots = to_device(
+                torch.tensor([self._assign_slot(k) for k in keys], dtype=torch.int64),
+                self.device,
+            )
             vectors = self._pad_cols(
                 self._normalize(vectors.to(device=self.device, dtype=torch.float32))
             )
             # in place: the buffer is updated where it lies (the JAX package
             # donates the old buffer to the scatter for the same effect)
             self._buffer.index_copy_(0, slots, vectors)
-            self._valid_dev[slots] = True
+            self._valid_dev.index_fill_(0, slots, True)
             return
         vectors = self._normalize(np.asarray(vectors, dtype=np.float32))
+        if memtrack.ENABLED:
+            new = sum(1 for k in keys if k not in self._slot_of_key)
+            if new:
+                self._note_ingest(new)
         for key, vec in zip(keys, vectors):
             self._dirty[self._assign_slot(key)] = vec
 
@@ -192,6 +237,10 @@ class DeviceKnnIndex:
         slot = self._slot_of_key.pop(key, None)
         if slot is None:
             return
+        if _serving.ENABLED:
+            # a removal can only change cached queries whose results held
+            # this key: a bump of its cluster alone
+            _serving.note_index_remove(key)
         del self._key_of_slot[slot]
         self._free.append(slot)
         self._dirty[slot] = None
@@ -207,6 +256,8 @@ class DeviceKnnIndex:
         self._buffer, self._valid_dev = buffer, valid
         self._free.extend(range(new_capacity - 1, self.capacity - 1, -1))
         self.capacity = new_capacity
+        if memtrack.ENABLED:
+            self._register_memory()
 
     def _flush(self) -> None:
         if not self._dirty:
@@ -283,6 +334,17 @@ class FusedEmbedSearch:
             )
         self.encoder = encoder
         self.index = index
+        if memtrack.ENABLED:
+            # param bytes, keyed on the lm so an encoder shared between
+            # FusedEmbedSearch instances counts once
+            memtrack.tracker().register(
+                "encoder_params",
+                encoder.lm,
+                sum(p.numel() * p.element_size() for p in encoder.lm.parameters()),
+                device_span=1,
+                dp_shards=1,
+                model=type(encoder).__name__,
+            )
 
     def embed_and_add(self, keys, texts) -> None:
         """Embed a doc batch and write it into the index, all on the device.
@@ -317,6 +379,11 @@ class FusedEmbedSearch:
             "slab_tokens": total,
             # bytes of the two wire arrays (ids + seg/mask)
             "slab_bytes": int(payload[2].nbytes) + int(payload[3].nbytes),
+            # mask-aware useful FLOPs for the live MFU gauge
+            # (internals/utilization.py); padding is not useful work
+            "useful_flops": costmodel.encoder_flops_for_config(
+                self.encoder.config, real, len(keys)
+            ),
         }
         return payload, meta
 
@@ -328,13 +395,23 @@ class FusedEmbedSearch:
         lm = self.encoder.lm
         if kind == "packed":
             pooled = lm.encode_packed(ids, second, PACK_MAX_SEGMENTS)
-            at = torch.tensor(slots, dtype=torch.int64).reshape(-1, 2).to(pooled.device)
+            at = to_device(torch.tensor(slots, dtype=torch.int64).reshape(-1, 2), pooled.device)
             emb = pooled[at[:, 0], at[:, 1]]
         else:
             emb = lm(ids, second)[: len(keys)]
         if keys:
             self.index.add_batch(keys, emb)
         return emb
+
+    def _top_k(self, emb: torch.Tensor, k: int) -> torch.Tensor:
+        """Dense similarity + top-k of [Q, d] embeddings over the index,
+        packed as [Q, 2k] (scores, then slots as f32) for one host copy."""
+        scores = _similarity(
+            self.index._buffer, self.index._valid_dev, self.index._pad_cols(emb),
+            self.index.metric,
+        )
+        top_scores, top_idx = torch.topk(scores, k, dim=1)
+        return torch.cat([top_scores, top_idx.float()], dim=1)
 
     def _fused(self, ids, mask, k: int) -> torch.Tensor:
         lm = self.encoder.lm
@@ -345,12 +422,25 @@ class FusedEmbedSearch:
                 torch.from_numpy(ids.astype(np.int32)).to(self.device),
                 torch.from_numpy(mask.astype(np.int32)).to(self.device),
             )
-            scores = _similarity(
-                self.index._buffer, self.index._valid_dev, self.index._pad_cols(emb),
-                self.index.metric,
-            )
-            top_scores, top_idx = torch.topk(scores, k, dim=1)
-        return torch.cat([top_scores, top_idx.float()], dim=1)
+            return self._top_k(emb, k)
+
+    def _packed_query_search(self, texts, k_eff: int) -> torch.Tensor:
+        """Serving opt-in (PATHWAY_SERVE_PACK_QUERIES=1): the query batch
+        is packed into token-budget slabs, then packed encode -> per-query
+        gather -> similarity -> top-k. Off by default: the packed
+        reduction order is numerically equivalent to the classic bucketed
+        encode, not bitwise identical."""
+        ids, seg, slots = pack_batch(
+            self.encoder.tokenizer,
+            texts,
+            max_len=self.encoder.max_len,
+            token_budget=pack_token_budget() or 256,
+            max_segments=PACK_MAX_SEGMENTS,
+        )
+        with torch.no_grad():
+            pooled = self.encoder.lm.encode_packed(ids, seg, PACK_MAX_SEGMENTS)
+            at = torch.tensor(slots, dtype=torch.int64).reshape(-1, 2).to(pooled.device)
+            return self._top_k(pooled[at[:, 0], at[:, 1]], k_eff)
 
     def search_texts(self, texts, k: int) -> list:
         texts = list(texts)
@@ -358,8 +448,21 @@ class FusedEmbedSearch:
             return [[] for _ in texts]
         self.index._flush()
         k_eff = min(k, self.index.capacity)
-        ids, mask = encode_batch(self.encoder.tokenizer, texts, max_len=self.encoder.max_len)
-        packed = self._fused(ids, mask, k_eff)[: len(texts)].cpu().numpy()
+        t0 = time_mod.perf_counter() if _qtrace.ENABLED else 0.0
+        if _serving.ENABLED and len(texts) > 1 and _serving.pack_queries():
+            packed = self._packed_query_search(texts, k_eff)
+        else:
+            ids, mask = encode_batch(
+                self.encoder.tokenizer, texts, max_len=self.encoder.max_len
+            )
+            packed = self._fused(ids, mask, k_eff)
+        packed = packed[: len(texts)].cpu().numpy()
+        if _qtrace.ENABLED:
+            # the device portion of the query (encode + search, up to the
+            # host copy) into the tail-attribution window
+            _qtrace.tracker().note_device_window(
+                time_mod.perf_counter() - t0, source="knn_search"
+            )
         scores = packed[:, :k_eff]
         idx = packed[:, k_eff:].astype(np.int64)
         return _format_rows(scores, idx, self.index._key_of_slot)

@@ -274,6 +274,34 @@ def test_index_on_card_matches_cpu(card, metric):
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4, rtol=0)
 
 
+def test_vector_impl_on_card_refuses_the_host_path_when_degraded(card, monkeypatch):
+    """The framework's vector impl on the card keeps no host mirror; a
+    degraded monitor makes its search raise, and once re-promoted the
+    search launches knn_topk."""
+    from pathway_tpu_torch.internals import device_probe
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
+        DeviceDegradedError,
+        _KnnIndexImpl,
+    )
+
+    data = np.random.default_rng(9).standard_normal((50, 16)).astype(np.float32)
+    impl = _KnnIndexImpl(16, "cos", 64, device=card)
+    assert impl._host_vecs is None and impl.knn.device.type == "cuda"
+    for i, v in enumerate(data):
+        impl.add(i, v, None)
+    monitor = device_probe.DeviceMonitor(probe=lambda timeout_s: (None, "down"))
+    monitor.probe_once()
+    monkeypatch.setattr(device_probe, "_monitor", monitor)
+    before = kernels.knn_topk.launches
+    with pytest.raises(DeviceDegradedError):
+        impl.search_many([data[3]], [3], [None])
+    assert kernels.knn_topk.launches == before
+    monitor.probe = lambda timeout_s: (1.0, None)
+    monitor.probe_once()
+    (row,) = impl.search_many([data[3]], [3], [None])
+    assert row[0][0] == 3 and kernels.knn_topk.launches == before + 1
+
+
 @pytest.mark.parametrize("d", [2, 3, 6])
 @pytest.mark.parametrize("metric", ["cos", "ip", "l2sq"])
 def test_index_on_card_takes_any_dimensions(card, metric, d):
@@ -335,6 +363,29 @@ def test_fused_embed_search_on_card_matches_cpu(card):
     for g, w in zip(got, want):
         assert [key for key, _ in g] == [key for key, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_dispatch_batch_enqueues_without_waiting_for_the_card(card, pack):
+    """The DevicePipeline's dispatch stage only queues work: no copy in it
+    synchronises the card's stream (a pageable upload would, and the
+    dispatch would then wait for the batch before it). torch's sync debug
+    mode raises on any such synchronisation."""
+    docs = [f"document {i} " + " ".join(f"t{(i * 5 + j) % 37}" for j in range(i % 7 + 3)) for i in range(48)]
+    enc = SentenceEncoder("sync-test", config=_small_config("float32"), max_len=64, device=card)
+    fused = FusedEmbedSearch(enc, DeviceKnnIndex(64, reserved_space=64, device=card), device=card)
+    fused.dispatch_batch(fused.prepare_batch(range(16), docs[:16], pack=pack)[0])  # warm-up
+    payload, _ = fused.prepare_batch(range(16, 48), docs[16:], pack=pack)
+    assert payload[0] == ("packed" if pack else "classic")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emb = fused.dispatch_batch(payload)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert emb.shape == (32, 64) and len(fused.index) == 48
+    (row,) = fused.search_texts([docs[30]], 1)
+    assert row[0][0] == 30
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,8 @@
 """Drift guard: the port's host framework is a copy of the JAX package's.
 
-The engine, Table DSL, connectors, persistence, debug and observability
-modules under pathway_tpu_torch/ were copied whole from pathway_tpu/,
+The engine, Table DSL, connectors, persistence, debug, observability,
+UDF, stdlib indexing and LLM xpack modules under pathway_tpu_torch/ were
+copied whole from pathway_tpu/,
 with `pathway_tpu` rewritten to `pathway_tpu_torch`. For each one, the
 port's file (with `pathway_tpu_torch` read as `pathway_tpu`) and the JAX
 file must parse to the same syntax tree once docstrings are stripped:
@@ -24,7 +25,9 @@ JAX_PKG = os.path.join(REPO, "pathway_tpu")
 PORT_PKG = os.path.join(REPO, "pathway_tpu_torch")
 
 # the copied subpackages, and the copied modules outside them
-_COPIED_DIRS = ("analysis", "debug", "engine", "internals", "io", "persistence")
+_COPIED_DIRS = (
+    "analysis", "debug", "engine", "internals", "io", "persistence", "stdlib", "xpacks",
+)
 _COPIED_FILES = ("universes.py",)
 
 EDITED = {
@@ -46,6 +49,36 @@ EDITED = {
         "mesh_backend.activate), and the threaded run has no AnalysisError to surface"
     ),
     "analysis/__init__.py": "exports the fusion planner only; the analyzer's passes are not ported",
+    "internals/costmodel.py": (
+        "device_name reads torch.cuda.get_device_name in place of jax.devices(), "
+        "and the peak tables hold the H100's published numbers in place of the TPUs'"
+    ),
+    "internals/device_probe.py": (
+        "_PROBE_CODE runs a torch matmul on cuda with torch.cuda.synchronize() in "
+        "place of a jax.jit dispatch; device_status reads a live CUDA context and "
+        "memtrack.device_memory_stats in place of jax's"
+    ),
+    "stdlib/indexing/nearest_neighbors.py": (
+        "_quiesce_device reads back one element of the torch buffer in place of a "
+        "jnp.sum; the fused impl builds its index and FusedEmbedSearch on the "
+        "encoder's device; BruteForceKnn / BruteForceKnnFactory take device= for "
+        "the vector impl; mesh= and an active mesh backend raise (no device mesh); "
+        "the vector impl keeps its host mirror and numpy search for a CPU index only, "
+        "and on the card a degraded monitor makes search_many raise DeviceDegradedError "
+        "instead of moving the search to the host"
+    ),
+    "xpacks/llm/embedders.py": (
+        "SentenceTransformerEmbedder(device=None) places the encoder (None: the "
+        "CUDA card) and passes it to SentenceEncoder.cached; the JAX package "
+        "ignores its device='tpu'"
+    ),
+    "stdlib/__init__.py": "imports indexing only; the rest of the stdlib is not ported yet",
+    "xpacks/__init__.py": "imports llm only; xpacks/connectors is not ported yet",
+    "xpacks/llm/__init__.py": (
+        "imports embedders, parsers and splitters, and document_store lazily; "
+        "llms, prompts, rerankers, vector_store, question_answering, servers and "
+        "mcp_server are not ported yet"
+    ),
 }
 
 

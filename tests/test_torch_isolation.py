@@ -74,6 +74,10 @@ def test_importing_the_port_loads_no_jax():
         "import pathway_tpu_torch.ops.knn, pathway_tpu_torch.models.minilm\n"
         "import pathway_tpu_torch.models.hf_loader, pathway_tpu_torch.models.convert\n"
         "import pathway_tpu_torch.models.decoder, pathway_tpu_torch.models.decoder_lm\n"
+        "import pathway_tpu_torch.internals.device_probe, pathway_tpu_torch.internals.costmodel\n"
+        "import pathway_tpu_torch.engine.index_node, pathway_tpu_torch.stdlib.indexing\n"
+        "import pathway_tpu_torch.xpacks.llm.document_store, pathway_tpu_torch.xpacks.llm.embedders\n"
+        "pw.udf, pw.UDF, pw.indexing.BruteForceKnnFactory, pw.xpacks.llm.document_store\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"
@@ -99,7 +103,7 @@ def _tiny_config():
     "entry",
     [
         "resolve_device", "TransformerLM", "SentenceEncoder", "DeviceKnnIndex",
-        "FusedEmbedSearch", "ChatModel",
+        "FusedEmbedSearch", "ChatModel", "SentenceTransformerEmbedder", "_KnnIndexImpl",
     ],
 )
 def test_entry_points_raise_without_cuda(no_cuda, entry):
@@ -108,6 +112,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
     from pathway_tpu_torch.models.minilm import SentenceEncoder
     from pathway_tpu_torch.models.transformer import TransformerLM
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import _KnnIndexImpl
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 
     make = {
         "resolve_device": lambda: resolve_device(None),
@@ -120,6 +126,11 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
             DeviceKnnIndex(16, device="cpu"),
         ),
         "ChatModel": lambda: ChatModel("tiny-decoder"),
+        "SentenceTransformerEmbedder": lambda: SentenceTransformerEmbedder(
+            "iso-embedder", config=_tiny_config()
+        ),
+        # BruteForceKnn's vector impl, which has no encoder to follow
+        "_KnnIndexImpl": lambda: _KnnIndexImpl(16, "cos", 64),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()

@@ -179,7 +179,7 @@ def test_fused_packed_prepare_dispatch_matches_jax():
     jpayload, jmeta = jf.prepare_batch(keys, DOCS)
     ppayload, pmeta = pf.prepare_batch(keys, DOCS)
     assert ppayload[0] == jpayload[0] == "packed"
-    assert pmeta == {k: v for k, v in jmeta.items() if k != "useful_flops"}
+    assert pmeta == jmeta
     emb_j = np.asarray(jf.dispatch_batch(jpayload))
     emb_p = pf.dispatch_batch(ppayload)
     assert emb_p.shape == (24, 64)
@@ -214,3 +214,52 @@ def test_knn_kernel_grid_covers_every_tile_once(n, slots, want):
     ntiles = -(-n // 128)
     assert blocks <= slots
     assert (blocks - 1) * tiles_per_block < ntiles <= blocks * tiles_per_block  # none empty
+
+
+def test_hooks_match_jax_memtrack_serving_qtrace():
+    """The port's index and fused search call memtrack, serving and qtrace
+    where the JAX package does: the same registered bytes (index rows at
+    capacity, encoder params) and ingest forecast, one result-cache
+    generation bump per add / add_batch and one cluster bump per remove,
+    and one qtrace device window per search_texts."""
+    from pathway_tpu.internals import memtrack as jax_memtrack
+    from pathway_tpu.internals import qtrace as jax_qtrace
+    from pathway_tpu.internals import serving as jax_serving
+    from pathway_tpu_torch.internals import memtrack as port_memtrack
+    from pathway_tpu_torch.internals import qtrace as port_qtrace
+    from pathway_tpu_torch.internals import serving as port_serving
+
+    jenc, penc = _encoders()
+    trackers, tiers, windows = [], [], []
+    for memtrack, serving, qtrace in (
+        (jax_memtrack, jax_serving, jax_qtrace),
+        (port_memtrack, port_serving, port_qtrace),
+    ):
+        trackers.append(memtrack.reset_for_tests())
+        tiers.append(serving.reset_for_tests())
+        windows.append(len(qtrace.tracker()._device_window))
+    try:
+        jf = jax_knn.FusedEmbedSearch(jenc, jax_knn.DeviceKnnIndex(64, reserved_space=8))
+        pf = port_knn.FusedEmbedSearch(
+            penc, port_knn.DeviceKnnIndex(64, reserved_space=8, device="cpu"), device="cpu"
+        )
+        for f in (jf, pf):
+            f.embed_and_add(range(12), DOCS[:12])  # add_batch, grows 8 -> 16
+            f.index.add("extra", np.ones(64, dtype=np.float32))
+            f.index.remove(3)
+            f.search_texts(DOCS[:2], 3)
+        snaps = [t.snapshot()["components"] for t in trackers]
+        for comp in ("knn_index", "encoder_params"):
+            assert snaps[1][comp]["bytes"] == snaps[0][comp]["bytes"], comp
+        assert snaps[1]["knn_index"]["bytes"] == 16 * (4 * 64 + 1)
+        notes = [[(docs, nbytes) for _t, docs, nbytes in t._deltas] for t in trackers]
+        assert notes[1] == notes[0] == [(12, 12 * (4 * 64 + 1)), (1, 4 * 64 + 1)]
+        gens = [(t.cache.gen_global, list(t.cache.cluster_gens)) for t in tiers]
+        assert gens[1] == gens[0] and gens[1][0] == 2
+        grew = [len(q.tracker()._device_window) - w for q, w in zip((jax_qtrace, port_qtrace), windows)]
+        assert grew == [1, 1]
+    finally:
+        jax_serving.shutdown()
+        port_serving.shutdown()
+        jax_memtrack.reset_for_tests()
+        port_memtrack.reset_for_tests()
