@@ -56,7 +56,24 @@ width with random weights from a seed:
      FusedEmbedSearch.search_texts on the same index; (b) DocumentStore
      over a pw.udf embedder of seeded unit vectors (65,536 docs, the
      vector index impl, knn_topk), against a numpy brute force;
- 10. the card's line, one `kernels` JSON line, then the `ok` JSON line.
+ 10. the Private-RAG server, run after 9 and before 8: (a) 16,384
+     bench-style docs in 8 jsonlines files -> DocumentStore ->
+     BruteForceKnnFactory(SentenceTransformerEmbedder(max_len=64)) at full
+     MiniLM-L6 width, answered by BaseRAGQuestionAnswerer(HFPipelineChat(
+     ChatModel("mistral-7b", max_len=1024), max_new_tokens=32)) and served
+     by QASummaryRestServer on 127.0.0.1 through run_server(threaded=True),
+     every default on; RAGClient waits for /v1/statistics to count every
+     doc, then sends 8 sequential /v2/answer with return_context_docs, 8
+     concurrent ones, /v2/summarize, /v1/retrieve at k = 6 and 16 for each
+     query and /v2/list_documents; each answer's context docs against
+     /v1/retrieve's, each sequential answer against generate() on its
+     prompt, whose prefill (over 256 tokens) takes the flash kernel at head
+     dim 128, and the kernel on each layer's q / k / v of those prefills
+     (each sequential prompt at batch 1, the concurrent ones as one batch
+     of 8) against the plain version, as in phase 6; (b) CrossEncoderReranker() at full width on the card over
+     each query's 16 candidates, through the engine, against the same
+     weights on the CPU, and rerank_topk_filter's kept docs on both sides;
+ 11. the card's line, one `kernels` JSON line, then the `ok` JSON line.
 
 Phase 3 also holds the two shape repairs: DeviceKnnIndex at dimensions
 2, 3 and 6 (rows padded to 16 bytes for the kernel) against the same
@@ -572,11 +589,57 @@ def decoder_attention(decoder_module, fn):
         decoder_module._attention = plain
 
 
+def f32_attention(q, k, v, m, causal, use_flash):
+    """The plain attention in f32, in the decoder's attention signature."""
+    from pathway_tpu_torch.ops.kernels.flash_attention import reference_attention
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return reference_attention(q.float(), k.float(), v.float(), m, scale, causal).to(q.dtype)
+
+
+def flash_probe(flash_attention, per_layer: list):
+    """A stand-in for the decoder's attention: on each layer's own q / k /
+    v it runs the kernel and the plain version, appends to `per_layer`
+    (the kernel's min row cosine to the plain output, its max |err|
+    against f32 attention, that error over its tolerance 2e-2 + 2^-6 |o|,
+    the plain output's max |err| against f32) and returns the plain
+    output. Held by `check_probed_layers`."""
+    from pathway_tpu_torch.ops.kernels.flash_attention import reference_attention
+
+    def probe(q, k, v, m, causal, use_flash):
+        want = reference_attention(q, k, v, m, 1.0 / math.sqrt(q.shape[-1]), causal)
+        got = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), m, causal=causal)
+        check(bool(torch.isfinite(got.float()).all()), "flash_attention: non-finite output")
+        exact = f32_attention(q, k, v, m, causal, False).float()
+        err = (got.float() - exact).abs()
+        per_layer.append((logit_cosine(got, want), err.max().item(),
+                          (err / (2e-2 + 2.0 ** -6 * exact.abs())).max().item(),
+                          (want.float() - exact).abs().max().item()))
+        return want
+
+    return probe
+
+
+def check_probed_layers(per_layer: list, n_layers: int, what: str) -> tuple:
+    """Every probed layer within the kernel's tolerance: row cosine >= 0.999
+    to the plain version and |err| <= 2e-2 + 2^-6 |o| against f32.
+    Returns (min cosine, max |err|, max share of the tolerance, the plain
+    version's max |err|)."""
+    check(len(per_layer) == n_layers, f"{what}: probed {len(per_layer)} layers, not {n_layers}")
+    layer_cos = min(c for c, _, _, _ in per_layer)
+    layer_err = max(e for _, e, _, _ in per_layer)
+    layer_tol = max(r for _, _, r, _ in per_layer)
+    plain_err = max(p for _, _, _, p in per_layer)
+    check(layer_cos >= 0.999 and layer_tol <= 1.0,
+          f"{what}: flash per layer: min row cosine to dense {layer_cos}, max |err| against f32 "
+          f"attention {layer_err} ({layer_tol:.3f} of its tolerance)")
+    return layer_cos, layer_err, layer_tol, plain_err
+
+
 def run_decoder(card: str, flash_attention) -> dict:
     from pathway_tpu_torch.models import decoder as decoder_module
     from pathway_tpu_torch.models.decoder import decoder_forward, generate_tokens, init_kv_cache
     from pathway_tpu_torch.models.decoder_lm import ChatModel
-    from pathway_tpu_torch.ops.kernels.flash_attention import reference_attention
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -669,43 +732,18 @@ def run_decoder(card: str, flash_attention) -> dict:
                                     kv_valid=kv_valid, use_flash=use_flash)
         return logits[tm.bool()]
 
-    # per layer: (the kernel's min row cosine to the plain output, its max
-    # |err| against f32 attention, that error over its tolerance, the
-    # plain output's max |err| against f32)
     per_layer = []
-
-    def f32(q, k, v, m, causal, use_flash):
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        return reference_attention(q.float(), k.float(), v.float(), m, scale, causal).to(q.dtype)
-
-    def probe(q, k, v, m, causal, use_flash):
-        want = reference_attention(q, k, v, m, 1.0 / math.sqrt(q.shape[-1]), causal)
-        got = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), m, causal=causal)
-        check(bool(torch.isfinite(got.float()).all()), "flash_attention: non-finite output")
-        exact = f32(q, k, v, m, causal, False).float()
-        err = (got.float() - exact).abs()
-        per_layer.append((logit_cosine(got, want), err.max().item(),
-                          (err / (2e-2 + 2.0 ** -6 * exact.abs())).max().item(),
-                          (want.float() - exact).abs().max().item()))
-        return want
-
     with torch.no_grad():
         flash_logits = prefill(use_flash=True)
-        with decoder_attention(decoder_module, probe):
+        with decoder_attention(decoder_module, flash_probe(flash_attention, per_layer)):
             dense_logits = prefill()
-        with decoder_attention(decoder_module, f32):
+        with decoder_attention(decoder_module, f32_attention):
             f32_logits = prefill()
         cos = logit_cosine(flash_logits, dense_logits)
         yardstick = logit_cosine(f32_logits, dense_logits)
         del flash_logits, dense_logits, f32_logits
-    layer_cos = min(c for c, _, _, _ in per_layer)
-    layer_err = max(e for _, e, _, _ in per_layer)
-    layer_tol = max(r for _, _, r, _ in per_layer)
-    plain_err = max(p for _, _, _, p in per_layer)
-    check(len(per_layer) == cfg.layers, f"probed {len(per_layer)} layers, not {cfg.layers}")
-    check(layer_cos >= 0.999 and layer_tol <= 1.0,
-          f"prefill flash per layer: min row cosine to dense {layer_cos}, max |err| against f32 "
-          f"attention {layer_err} ({layer_tol:.3f} of its tolerance)")
+    layer_cos, layer_err, layer_tol, plain_err = check_probed_layers(
+        per_layer, cfg.layers, "prefill")
     log(f"  prefill flash at each of {len(per_layer)} layers, on its q / k / v: min row cosine to "
         f"dense {layer_cos:.6f}; max |err| against f32 attention {layer_err:.3g} ({layer_tol:.3f} "
         f"of 2e-2 + 2^-6 |o|; dense: {plain_err:.3g})  ok")
@@ -1178,6 +1216,328 @@ def run_udf_docstore(card: str, n_docs: int = N_UDF_DOCS, device=None) -> dict:
     return {"seconds": elapsed, "max_score_err": err}
 
 
+# -- phase 10: the Private-RAG server --------------------------------------------
+
+RAG_QUERIES = 8
+RAG_NEW_TOKENS = 32
+RAG_TOPK = 6  # BaseRAGQuestionAnswerer's search_topk
+RERANK_CANDIDATES = 16
+RERANK_KEEP = 4
+# card against CPU cross-encoder scores, both in bf16: scores are of order
+# 0.03 (the head's 0.02 scale over a pooled vector of order 1), and a bf16
+# rounding of the pooled vector (2^-8 relative) moves one by ~1e-4, so two
+# roundings' worth of drift through 4 layers is held to 1e-3
+RERANK_ATOL = 1e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rag_prompts(queries, docs_per_query) -> list[str]:
+    """The text HFPipelineChat generates from for each /v2/answer:
+    prompt_qa over the docs, wrapped by prompt_chat_single_qa, through the
+    engine as BaseRAGQuestionAnswerer.answer_query builds it."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.runner import run_tables
+    from pathway_tpu_torch.xpacks.llm.llms import _messages_to_prompt, prompt_chat_single_qa
+    from pathway_tpu_torch.xpacks.llm.prompts import prompt_qa
+
+    pw.G.clear()
+    t = pw.debug.table_from_rows(
+        pw.schema_from_types(i=int, q=str, docs=pw.Json),
+        [(i, q, pw.Json(d)) for i, (q, d) in enumerate(zip(queries, docs_per_query))],
+    )
+    (cap,) = run_tables(t.select(i=pw.this.i, m=prompt_chat_single_qa(prompt_qa(pw.this.q, pw.this.docs))))
+    pw.G.clear()
+    by_i = {row[0]: _messages_to_prompt(row[1]) for row in cap.state.rows.values()}
+    return [by_i[i] for i in range(len(queries))]
+
+
+def _serve_rag(docs_path: str, n_docs: int, generator, queries, concurrent, probe: str,
+               autocommit_ms: float | None = None) -> dict:
+    """QASummaryRestServer over DocumentStore + HFPipelineChat on a free
+    port, driven by RAGClient; every request must answer 200 (RAGClient
+    raises on any other status). `autocommit_ms` None serves through
+    `run_server(threaded=True)`; a number runs the same graph through
+    `pw.run(autocommit_duration_ms=...)` on a thread instead (what
+    `run_server` does at the default of 100 ms), to compare commit
+    cadences."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import health, utilization
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.ops.kernels import flash_attention, knn_topk
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer, RAGClient
+
+    pw.G.clear()
+    docs = pw.io.jsonlines.read(
+        docs_path,
+        schema=pw.schema_from_types(data=str),
+        mode="streaming",
+        batch_per_file=True,
+        refresh_interval=3600.0,  # every file exists up front
+    )
+    embedder = SentenceTransformerEmbedder(max_len=64)
+    factory = BruteForceKnnFactory(
+        dimensions=embedder.get_embedding_dimension(), embedder=embedder, reserved_space=n_docs
+    )
+    store = DocumentStore(docs, retriever_factory=factory)
+    rag = BaseRAGQuestionAnswerer(
+        HFPipelineChat(generator=generator, max_new_tokens=RAG_NEW_TOKENS), store
+    )
+    port = _free_port()
+    rag.build_server("127.0.0.1", port)
+    client = RAGClient("127.0.0.1", port, timeout=300)
+    # the window scoped to this run, as 9a scopes its measured run: the
+    # dispatches of the phases before it do not pace this ingest
+    utilization.reset_window()
+    actions = dict(health.controller().status()["actions"])
+    t0 = time.perf_counter()
+    if autocommit_ms is None:
+        server = rag.run_server(threaded=True)
+    else:
+        server = threading.Thread(target=pw.run, daemon=True,
+                                  kwargs={"autocommit_duration_ms": autocommit_ms})
+        server.start()
+    out: dict = {}
+    try:
+        deadline = t0 + 300
+        while True:  # the routes register once the engine runs
+            check(server.is_alive(), "the QA server's engine stopped")
+            try:
+                if client.statistics()["file_count"] == n_docs:
+                    break
+            except OSError:  # not yet listening, or 404 before the routes
+                pass
+            check(time.perf_counter() < deadline, "the store did not count every doc in 300 s")
+            time.sleep(0.05)
+        out["counted_s"] = time.perf_counter() - t0
+        top = client.retrieve(probe, k=1)
+        check(top and top[0]["text"] == probe, f"the probe for the last doc found {top}")
+        out["ready_s"] = time.perf_counter() - t0
+        out["window"] = utilization.tracker().snapshot()  # the ingest's bound state
+        after = health.controller().status()["actions"]
+        out["throttles"] = after["throttle"] - actions["throttle"]
+        out["relaxes"] = after["relax"] - actions["relax"]
+        utilization.reset_window()  # the ingest's dispatches do not pace the requests
+
+        answers, lat = [], []
+        for q in queries:
+            tq = time.perf_counter()
+            answers.append(client.answer(q, return_context_docs=True))
+            lat.append((time.perf_counter() - tq) * 1000)
+        out["answers"], out["lat_ms"] = answers, lat
+        results: list = [None] * len(concurrent)
+
+        def one(i: int) -> None:
+            results[i] = client.answer(concurrent[i], return_context_docs=True)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(concurrent))]
+        tq = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        out["concurrent_s"] = time.perf_counter() - tq
+        check(all(not t.is_alive() for t in threads), "a concurrent answer did not return")
+        out["concurrent"] = results
+        tq = time.perf_counter()
+        out["summary"] = client.summarize(queries[:3])
+        out["summary_s"] = time.perf_counter() - tq
+        out["retrieve"] = [client.retrieve(q, k=RAG_TOPK) for q in queries]
+        out["candidates"] = [client.retrieve(q, k=RERANK_CANDIDATES) for q in queries]
+        out["listing"] = client.list_documents()
+        out["requests"] = 3 + 3 * len(queries) + len(concurrent)  # after the readiness polls
+        # the kernels the served requests launched, before any check below
+        out["flash_launches"] = flash_attention.launches
+        out["knn_launches"] = knn_topk.launches
+    finally:
+        engine = pw_runner.last_engine()
+        if engine is not None:
+            engine.terminate_flag.set()
+        server.join(timeout=60)
+        pw.G.clear()
+        pw_runner._last_engine = None
+    check(not server.is_alive(), "the QA server's engine did not stop")
+    return out
+
+
+def _rerank(queries, candidates) -> dict:
+    """10b: CrossEncoderReranker on the card and on the CPU (the same
+    seeded weights) over each query's candidates, through the engine,
+    then rerank_topk_filter; the card's scores and kept docs against the
+    CPU's."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.runner import run_tables
+    from pathway_tpu_torch.ops.kernels import flash_attention
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker, rerank_topk_filter
+
+    rerankers = {"card": CrossEncoderReranker(), "cpu": CrossEncoderReranker(device="cpu")}
+    check(rerankers["card"].model.device.type == "cuda", "the reranker is not on the card")
+    rows = [(q, d["text"]) for q, cands in zip(queries, candidates) for d in cands]
+    out = {}
+    for side, reranker in rerankers.items():
+        pw.G.clear()
+        pairs = pw.debug.table_from_rows(pw.schema_from_types(q=str, doc=str), rows)
+        scored = pairs.select(q=pw.this.q, doc=pw.this.doc, s=reranker(pw.this.doc, pw.this.q))
+        grouped = scored.groupby(pw.this.q).reduce(
+            q=pw.this.q, docs=pw.reducers.tuple(pw.this.doc), scores=pw.reducers.tuple(pw.this.s)
+        )
+        kept = grouped.select(q=pw.this.q, kept=rerank_topk_filter(pw.this.docs, pw.this.scores, RERANK_KEEP))
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        cap_scored, cap_kept = run_tables(scored, kept)
+        out[side + "_s"] = time.perf_counter() - t0
+        out[side + "_flash"] = flash_attention.launches - before
+        pw.G.clear()
+        out[side] = (
+            {(r[0], r[1]): r[2] for r in cap_scored.state.rows.values()},
+            {r[0]: r[1] for r in cap_kept.state.rows.values()},
+        )
+    (card_scores, card_kept), (cpu_scores, cpu_kept) = out["card"], out["cpu"]
+    check(len(card_scores) == len(rows) == len(cpu_scores), f"{len(card_scores)} scores, {len(rows)} pairs")
+    err = max(abs(card_scores[k] - cpu_scores[k]) for k in cpu_scores)
+    check(err <= RERANK_ATOL, f"card vs CPU cross-encoder scores: max abs err {err:.3g} > {RERANK_ATOL}")
+    # a kept doc may differ only by a near-tie: both its scores within twice
+    # the largest card / CPU drift of the K-th kept score
+    tie_tol = 2 * err + 1e-6
+    exact = 0
+    for q in queries:
+        (cd, cs), (pd, ps) = card_kept[q], cpu_kept[q]
+        check(len(cd) == len(pd) == RERANK_KEEP, f"kept {len(cd)} / {len(pd)} docs")
+        kth = min(cs[-1], ps[-1])
+        swapped = set(cd) ^ set(pd)
+        check(all(abs(cpu_scores[(q, d)] - kth) <= tie_tol for d in swapped),
+              f"query {q!r}: kept {cd} on the card, {pd} on the CPU, beyond near-ties")
+        exact += list(cd) == list(pd)
+    out.update(max_abs_err=err, exact=exact, pairs=len(rows))
+    return out
+
+
+def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None = None) -> dict:
+    """10a: the Private-RAG server at full width, every default on, and
+    10b: the cross-encoder at full width, on the card against the CPU.
+    `autocommit_ms`: see `_serve_rag`."""
+    from pathway_tpu_torch.models import decoder as decoder_module
+    from pathway_tpu_torch.models.decoder import generate_tokens
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+    from pathway_tpu_torch.ops.kernels import flash_attention
+
+    t_phase = time.perf_counter()
+    docs = make_docs(n_docs, random.Random(13))
+    queries = make_prompts(RAG_QUERIES, random.Random(19), 8, 16)
+    concurrent = make_prompts(RAG_QUERIES, random.Random(23), 8, 16)
+    generator = ChatModel("mistral-7b", max_len=1024, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        docs_path = os.path.join(tmp, "docs")
+        os.makedirs(docs_path)
+        per_file = n_docs // N_CHUNKS
+        for f in range(N_CHUNKS):
+            with open(os.path.join(docs_path, f"docs_{f:03d}.jsonl"), "w") as fh:
+                for d in docs[f * per_file : (f + 1) * per_file]:
+                    fh.write(json.dumps({"data": d}) + "\n")
+        served = _serve_rag(docs_path, n_docs, generator, queries, concurrent, docs[-1],
+                            autocommit_ms)
+    served_s = time.perf_counter() - t_phase
+
+    # each answer's context is /v1/retrieve's top 6 for its query, and its
+    # reply is generate() on the prompt built from that context, batch 1
+    answers = served["answers"]
+    exact_docs = 0
+    for q, ans, ret in zip(queries, answers, served["retrieve"]):
+        ctx = ans["context_docs"]
+        check([d["text"] for d in ctx] == [d["text"] for d in ret] and len(ctx) == RAG_TOPK,
+              f"query {q!r}: context docs differ from /v1/retrieve's top {RAG_TOPK}")
+        check(all(abs(a["score"] - b["score"]) <= 1e-5 for a, b in zip(ctx, ret)),
+              f"query {q!r}: context doc scores differ from /v1/retrieve's")
+        exact_docs += ctx == ret
+    prompts = _rag_prompts(queries, [a["context_docs"] for a in answers])
+    lengths = [int(generator.encode_prompts([p], RAG_NEW_TOKENS)[1].sum()) for p in prompts]
+    check(min(lengths) > 256, f"RAG prompts of {lengths} tokens stay under the flash gate")
+    check(max(lengths) <= generator.max_len - RAG_NEW_TOKENS, f"prompts of {lengths} tokens were cut")
+    for q, p, ans in zip(queries, prompts, answers):
+        direct = generator.generate([p], max_new_tokens=RAG_NEW_TOKENS)[0]
+        check(isinstance(ans["response"], str) and ans["response"] == direct,
+              f"query {q!r}: the served answer differs from generate() on its prompt")
+    check(all(isinstance(r, dict) and isinstance(r.get("response"), str) and r["response"]
+              and len(r.get("context_docs", ())) == RAG_TOPK
+              for r in served["concurrent"]), f"concurrent answers: {served['concurrent']}")
+
+    # flash at the served prefills' shapes, on each layer's own q / k / v,
+    # held to phase 6's per-layer tolerance (`flash_probe`): each
+    # sequential prompt at batch 1, as it was served, and the 8 concurrent
+    # prompts as one ragged batch, the largest the micro-batcher forms
+    batch = _rag_prompts(concurrent, [r["context_docs"] for r in served["concurrent"]])
+    per_layer: list = []
+    probed = [[p] for p in prompts] + [batch]
+    with torch.no_grad(), decoder_attention(decoder_module, flash_probe(flash_attention, per_layer)):
+        for group in probed:
+            ids, mask = generator.encode_prompts(group, RAG_NEW_TOKENS)
+            check(int(mask.sum(1).min()) > 256, f"a probed prompt of {mask.sum(1)} tokens")
+            generate_tokens(generator.params, generator.config, ids, mask, max_new_tokens=1)
+    layer_cos, layer_err, layer_tol, plain_err = check_probed_layers(
+        per_layer, len(probed) * generator.config.layers, "RAG prefills")
+    batch_shape = [len(batch), generator.config.q_heads, ids.shape[1], generator.config.head_dim]
+    check(isinstance(served["summary"], dict) and isinstance(served["summary"].get("response"), str),
+          f"summarize: {served['summary']}")
+    check(len(served["listing"]) == n_docs, f"list_documents: {len(served['listing'])} entries")
+    check(all(len(c) == RERANK_CANDIDATES for c in served["candidates"]), "retrieve at k = 16")
+    check(served["flash_launches"] > 0, "the RAG server's prefills launched no flash kernel")
+    lat = served["lat_ms"]
+    log(f"  QASummaryRestServer on 127.0.0.1 (aiohttp), {n_docs} docs in {N_CHUNKS} jsonlines files "
+        f"-> DocumentStore -> BruteForceKnnFactory(SentenceTransformerEmbedder(max_len=64)), "
+        f"BaseRAGQuestionAnswerer(HFPipelineChat(ChatModel('mistral-7b', max_len=1024), "
+        f"max_new_tokens={RAG_NEW_TOKENS})), every default on"
+        f"{'' if autocommit_ms is None else f' but pw.run(autocommit_duration_ms={autocommit_ms})'}: "
+        f"store ready {served['ready_s']:.3f} s after run_server (every doc counted at "
+        f"{served['counted_s']:.3f} s) [{card}]")
+    win = served["window"]
+    log(f"  the ingest's utilization window at readiness: {win['bound_state']} over "
+        f"{win['window_s']:.3f} s, {win['dispatches']} dispatches; health controller in the "
+        f"ingest: {served['throttles']} throttle, {served['relaxes']} relax actions; the window "
+        f"reset before the requests")
+    log(f"  {RAG_QUERIES} sequential /v2/answer (k = {RAG_TOPK}, prompts of {min(lengths)}-"
+        f"{max(lengths)} tokens): p50 {np.percentile(lat, 50):.1f} ms, p90 "
+        f"{np.percentile(lat, 90):.1f} ms (n = {len(lat)}: between the two slowest), max "
+        f"{max(lat):.1f} ms; {RAG_QUERIES} concurrent in {served['concurrent_s']:.3f} s "
+        f"wall; /v2/summarize {served['summary_s']:.3f} s; {served['requests']} requests after the store was ready, all 200; "
+        f"flash_attention launches {served['flash_launches']}, knn_topk {served['knn_launches']} [{card}]")
+    log(f"  every answer's context_docs = /v1/retrieve's top {RAG_TOPK} (texts in order, scores within "
+        f"1e-5; equal whole in {exact_docs}/{RAG_QUERIES}); every sequential answer = "
+        f"generate([prompt], max_new_tokens={RAG_NEW_TOKENS}) on its prompt_qa + "
+        f"prompt_chat_single_qa prompt  ok")
+    log(f"  flash at the served prefills, each layer on its q / k / v ({len(per_layer)} layers: "
+        f"{len(prompts)} prompts at [1, {generator.config.q_heads}, {min(lengths)}-{max(lengths)}, "
+        f"{generator.config.head_dim}], the concurrent ones at {batch_shape}, causal, bf16): min "
+        f"row cosine to dense {layer_cos:.6f}; max |err| against f32 attention {layer_err:.3g} "
+        f"({layer_tol:.3f} of 2e-2 + 2^-6 |o|; dense: {plain_err:.3g})  ok")
+    served_launches = {"flash_attention": served["flash_launches"], "knn_topk": served["knn_launches"]}
+    del generator, served["answers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rr = _rerank(queries, served["candidates"])
+    check(rr["card_flash"] == 0, f"the cross-encoder (L <= 256) launched flash {rr['card_flash']} times")
+    log(f"  CrossEncoderReranker() (4 layers, hidden 384, cls pooling, bf16) over {rr['pairs']} pairs "
+        f"({RAG_QUERIES} queries x /v1/retrieve's {RERANK_CANDIDATES} candidates), through the "
+        f"engine: card {rr['card_s']:.3f} s, CPU {rr['cpu_s']:.3f} s; card vs CPU scores max abs err "
+        f"{rr['max_abs_err']:.3g} (<= {RERANK_ATOL}); rerank_topk_filter(..., {RERANK_KEEP}) kept the "
+        f"same docs in order for {rr['exact']}/{RAG_QUERIES} queries, the rest within near-ties; "
+        f"flash launches 0 (L <= 256)  ok [{card}]")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 10 wall {phase_s:.1f} s (10a served {served_s:.1f} s)")
+    return {"launches": served_launches, "p50_ms": float(np.percentile(lat, 50)),
+            "phase_s": phase_s}
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -1397,6 +1757,18 @@ def main() -> int:
     log(f"  launches on the UDF-embedder DocumentStore: knn_topk {knn_topk.launches}, "
         f"flash_attention {flash_attention.launches}")
 
+    log("[10] the Private-RAG server (QASummaryRestServer), before phase 8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    rag = run_rag_server(card)["launches"]
+    knn_row["launches_by_path"]["rag_server"] = rag["knn_topk"]
+    flash_row["launches_by_path"]["rag_server"] = rag["flash_attention"]
+    log(f"  launches on the RAG server path: flash_attention {rag['flash_attention']} (the 7B "
+        f"prefills, L > 256, D = 128), knn_topk {rag['knn_topk']} (the fused search is dense "
+        f"similarity + top-k, as the JAX package's)")
+
     log("[8] the framework path on the card's host")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1408,7 +1780,7 @@ def main() -> int:
     log("  kernel launches on the framework path: 0 (host only)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    log("[10] summary")
+    log("[11] summary")
     log(card)
     log(json.dumps({"kernels": [knn_row, flash_row]}))
     log(json.dumps({

@@ -11,9 +11,12 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
   * UDFs (`pw.udf`, `pw.UDF`; internals/udfs/), the external-index
     operator (engine/index_node.py), `pw.indexing` (stdlib/indexing/:
     brute-force KNN on the card, BM25, hybrid, LSH / IVF) and the LLM
-    xpack's embedders, parsers, splitters and `DocumentStore`
-    (`pw.xpacks.llm`);
-  * the MiniLM-class encoder and the decoder (models/), the device KNN
+    xpack (`pw.xpacks.llm`): embedders, parsers, splitters,
+    `DocumentStore`, prompts, chats (`HFPipelineChat` on the decoder),
+    rerankers, RAG question answering, and the REST, vector-store and
+    MCP servers over `pw.io.http`;
+  * the MiniLM-class encoder, the cross-encoder and the decoder
+    (models/), the device KNN
     index and the fused embed+search object (ops/knn.py), and
     hand-written Hopper kernels for the JAX package's two Pallas kernels
     (ops/kernels/).
@@ -32,8 +35,9 @@ Usage mirrors the JAX package::
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
 The rest of the stdlib (temporal, ordered, stateful, statistical, ml, ...),
-the other xpack modules (llms, rerankers, servers, ...) and the static
-analyzer are not ported yet.
+xpacks/connectors, the connectors other than fs / csv / jsonlines /
+plaintext / python / null / s3 / http, and the static analyzer are not
+ported yet.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ covers both layouts the JAX package produces: `init_params` (pre-LN, with
 `ln_f`) and `hf_loader.load_hf_encoder` (post-LN, with `type_embed`,
 `embed_ln` and the HF dense weights already transposed to [in, out]).
 `decoder_params_from_jax` does the same for the decoder's tree
-(models/decoder.py), keeping each array's dtype.
+(models/decoder.py), keeping each array's dtype, and
+`cross_encoder_params_from_jax` for the cross-encoder's encoder and head.
 """
 
 from __future__ import annotations
@@ -90,3 +91,17 @@ def decoder_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
             )
         out["layers"].append({k: _decoder_tensor(v) for k, v in layer.items()})
     return out
+
+
+def cross_encoder_params_from_jax(lm_params: Dict[str, Any], head) -> Dict[str, Any]:
+    """The JAX package's `CrossEncoderModel` weights as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, model.lm.params)`` and
+    ``model.head``) -> ``{"lm": ..., "head": ...}``: the port's
+    ``CrossEncoderModel`` takes them as
+    ``model.lm = TransformerLM(config, params=out["lm"], device=...)`` and
+    ``model.head = out["head"]`` on the same device."""
+    head = _tensor(head)
+    hidden = np.shape(lm_params["embed"])[1]
+    if head.shape != (hidden,):
+        raise ValueError(f"head has shape {tuple(head.shape)}, expected ({hidden},)")
+    return {"lm": params_from_jax(lm_params), "head": head}

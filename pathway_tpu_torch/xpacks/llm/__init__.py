@@ -1,9 +1,6 @@
-"""LLM xpack: embedders, parsers, splitters and the document store
-(reference: python/pathway/xpacks/llm/).
-
-Counterpart of pathway_tpu/xpacks/llm; llms, prompts, rerankers,
-vector_store, question_answering, servers and mcp_server are still to
-come (ROADMAP, Queue 1, item 1.4)."""
+"""LLM xpack: embedders, chats, splitters, parsers, rerankers, document
+store, vector store, RAG question answering, servers (reference:
+python/pathway/xpacks/llm/)."""
 
 from pathway_tpu_torch.xpacks.llm._typing import (
     Doc,
@@ -12,7 +9,10 @@ from pathway_tpu_torch.xpacks.llm._typing import (
 )
 from pathway_tpu_torch.xpacks.llm import (
     embedders,
+    llms,
     parsers,
+    prompts,
+    rerankers,
     splitters,
 )
 
@@ -21,7 +21,10 @@ __all__ = [
     "DocTransformer",
     "DocTransformerCallable",
     "embedders",
+    "llms",
     "parsers",
+    "prompts",
+    "rerankers",
     "splitters",
 ]
 
@@ -31,6 +34,10 @@ def __getattr__(name):
 
     known = {
         "document_store",
+        "vector_store",
+        "question_answering",
+        "servers",
+        "mcp_server",
     }
     if name in known:
         return importlib.import_module(f"pathway_tpu_torch.xpacks.llm.{name}")

@@ -425,3 +425,48 @@ def test_decoder_on_card_matches_cpu_and_prefills_through_flash(card, dtype):
         np.testing.assert_array_equal(
             toks, dec.generate_tokens(cpu_params, config, ids, mask, max_new_tokens=6)
         )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_encoder_on_card_matches_cpu(card, dtype):
+    """The same seeded weights score the same pairs on the card and the
+    CPU: f32 atol 1e-4, bf16 atol 1e-3 (scores of order 0.03 from the
+    head's 0.02 scale; chip_smoke.py holds the full-width model to the
+    same bound)."""
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+
+    config = TransformerConfig(
+        vocab_size=512, hidden=64, layers=2, heads=2, mlp_dim=128, max_len=256,
+        pooling="cls", dtype=dtype,
+    )
+    pairs = [(f"query {i}", " ".join(f"w{(i * 5 + j) % 89}" for j in range(10 + 30 * i)))
+             for i in range(8)]
+    gpu = CrossEncoderModel("cuda-test-ce", config=config, device=card)
+    cpu = CrossEncoderModel("cuda-test-ce", config=config, device="cpu")
+    assert gpu.head.device.type == "cuda"
+    before = kernels.flash_attention.launches
+    got = gpu.score(pairs)
+    assert kernels.flash_attention.launches == before  # L <= 256: dense
+    np.testing.assert_allclose(
+        got, cpu.score(pairs), atol=1e-4 if dtype == "float32" else 1e-3, rtol=0
+    )
+
+
+def test_hf_pipeline_chat_on_card_matches_cpu(card):
+    """HFPipelineChat places its decoder on the card; prompts over 256
+    tokens prefill through flash, and f32 greedy replies equal the CPU's."""
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
+
+    config = dec.DecoderConfig(
+        vocab_size=512, hidden=256, layers=2, q_heads=2, kv_heads=1,
+        mlp_dim=512, max_len=512, dtype="float32",
+    )
+    prompts = [" ".join(f"w{(i * 3 + j) % 71}" for j in range(290 + 7 * i)) for i in range(3)]
+    gpu = ChatModel("cuda-test-chat", config=config, max_len=512, device=card)
+    cpu = ChatModel("cuda-test-chat", config=config, max_len=512, device="cpu")
+    chat = HFPipelineChat(generator=gpu, max_new_tokens=6)
+    before = kernels.flash_attention.launches
+    got = chat.func(prompts)
+    assert kernels.flash_attention.launches == before + 2  # the prefill's, one per layer
+    assert got == cpu.generate(prompts, max_new_tokens=6)

@@ -1,8 +1,10 @@
 """Drift guard: the port's host framework is a copy of the JAX package's.
 
-The engine, Table DSL, connectors, persistence, debug, observability,
-UDF, stdlib indexing and LLM xpack modules under pathway_tpu_torch/ were
-copied whole from pathway_tpu/,
+The engine, Table DSL, connectors (pw.io.http with its REST server
+among them), persistence, debug, observability, UDF, stdlib indexing and
+LLM xpack modules (RAG question answering, prompts, chats, rerankers and
+the REST / MCP servers among them) under pathway_tpu_torch/ were copied
+whole from pathway_tpu/,
 with `pathway_tpu` rewritten to `pathway_tpu_torch`. For each one, the
 port's file (with `pathway_tpu_torch` read as `pathway_tpu`) and the JAX
 file must parse to the same syntax tree once docstrings are stripped:
@@ -74,10 +76,14 @@ EDITED = {
     ),
     "stdlib/__init__.py": "imports indexing only; the rest of the stdlib is not ported yet",
     "xpacks/__init__.py": "imports llm only; xpacks/connectors is not ported yet",
-    "xpacks/llm/__init__.py": (
-        "imports embedders, parsers and splitters, and document_store lazily; "
-        "llms, prompts, rerankers, vector_store, question_answering, servers and "
-        "mcp_server are not ported yet"
+    "xpacks/llm/llms.py": (
+        "HFPipelineChat(device=None) places the decoder (None: the CUDA card) and "
+        "passes it to ChatModel.cached; the JAX package ignores its device='tpu'"
+    ),
+    "xpacks/llm/rerankers.py": (
+        "CrossEncoderReranker and EncoderReranker take device=None (the CUDA card) "
+        "and pass it to CrossEncoderModel.cached / SentenceEncoder.cached; the JAX "
+        "package's rerankers take no device"
     ),
 }
 

@@ -78,6 +78,10 @@ def test_importing_the_port_loads_no_jax():
         "import pathway_tpu_torch.engine.index_node, pathway_tpu_torch.stdlib.indexing\n"
         "import pathway_tpu_torch.xpacks.llm.document_store, pathway_tpu_torch.xpacks.llm.embedders\n"
         "pw.udf, pw.UDF, pw.indexing.BruteForceKnnFactory, pw.xpacks.llm.document_store\n"
+        "import pathway_tpu_torch.models.cross_encoder, pathway_tpu_torch.io.http\n"
+        "from pathway_tpu_torch.xpacks.llm import llms, prompts, rerankers, question_answering\n"
+        "from pathway_tpu_torch.xpacks.llm import servers, vector_store, mcp_server\n"
+        "pw.io.http.PathwayWebserver, pw.xpacks.llm.servers.QASummaryRestServer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"
@@ -104,6 +108,7 @@ def _tiny_config():
     [
         "resolve_device", "TransformerLM", "SentenceEncoder", "DeviceKnnIndex",
         "FusedEmbedSearch", "ChatModel", "SentenceTransformerEmbedder", "_KnnIndexImpl",
+        "CrossEncoderModel", "HFPipelineChat", "CrossEncoderReranker",
     ],
 )
 def test_entry_points_raise_without_cuda(no_cuda, entry):
@@ -113,7 +118,10 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
     from pathway_tpu_torch.models.transformer import TransformerLM
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
     from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import _KnnIndexImpl
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
 
     make = {
         "resolve_device": lambda: resolve_device(None),
@@ -131,6 +139,9 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         ),
         # BruteForceKnn's vector impl, which has no encoder to follow
         "_KnnIndexImpl": lambda: _KnnIndexImpl(16, "cos", 64),
+        "CrossEncoderModel": lambda: CrossEncoderModel("iso-ce", config=_tiny_config()),
+        "HFPipelineChat": lambda: HFPipelineChat("iso-decoder"),
+        "CrossEncoderReranker": lambda: CrossEncoderReranker("iso-reranker"),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
