@@ -73,12 +73,28 @@ width with random weights from a seed:
      of 8) against the plain version, as in phase 6; (b) CrossEncoderReranker() at full width on the card over
      each query's 16 candidates, through the engine, against the same
      weights on the CPU, and rerank_topk_filter's kept docs on both sides;
+ 12. the stdlib path, run after 10 and before 8: (a) Nexmark Q5 (hot
+     items: sliding windows of 10 s every 5 s, the most-bid auctions of
+     each), Q7 (highest bid: tumbling 10 s windows joined back to the
+     bids) and Q8 (new users: a window_join of persons and auctions over
+     tumbling 10 s windows) through `pw.temporal`, over 600,000 events at
+     Apache Beam's NexmarkConfiguration defaults in 8 jsonlines files read
+     by pw.io.jsonlines (static), each query's final table equal to the
+     same query in plain Python, events/s per query; (b) `pw.ml` on the
+     card: KNNIndex(distance_type="euclidean") and ("cosine") over 65,536
+     seeded vectors of width 384, 32 queries in one engine batch, k = 6,
+     ids and scores against numpy's exact answer (knn_topk's l2sq and cos
+     modes through _KnnIndexImpl), then knn_lsh_classifier_train's
+     labels against a numpy majority vote;
  11. the card's line, one `kernels` JSON line, then the `ok` JSON line.
 
 Phase 3 also holds the two shape repairs: DeviceKnnIndex at dimensions
 2, 3 and 6 (rows padded to 16 bytes for the kernel) against the same
 index on the CPU, and flash at head dims 24, 48 and 80 (zero-padded to
-the next kernel instance) against the plain version.
+the next kernel instance) against the plain version; and flash's head-dim
+256 instance (head dims 160 and 200 padded to it) against the plain
+version, timed at [1, 16, 2048, 256] causal beside
+scaled_dot_product_attention.
 
 Every check raises on failure, so a failed phase exits non-zero and prints
 no `ok` line. Imports torch, numpy and pathway_tpu_torch only.
@@ -451,6 +467,73 @@ def check_padded_shapes(knn_topk, flash_attention, reference_attention) -> None:
             errs.append(e)
         log(f"  flash_attention D={d} (the D={padded_head_dim(d)} kernel) [4,8,512,{d}] vs plain: "
             f"max |err| on live rows bf16 {max(errs[-3:-1]):.3g}, f32 causal {errs[-1]:.3g}  ok")
+
+
+def check_flash_d256(flash_attention, reference_attention) -> dict:
+    """Flash at head dim 256 (one warp per query row) and at 160 and 200
+    through the padding, against the plain version on rows with a live key
+    (bf16 2e-2, f32 1e-4, the other instances' tolerances), then its time
+    at gemma-7b's attention geometry [1, 16, 2048, 256] causal bf16 beside
+    scaled_dot_product_attention(is_causal=True) and the bound. Its own
+    generator, so the draws of the other checks stay as they were."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = [
+        (2, 4, 300, 300, 256, torch.bfloat16, True),
+        (2, 4, 300, 300, 256, torch.bfloat16, False),
+        (2, 2, 1, 77, 256, torch.bfloat16, False),
+        (2, 4, 300, 300, 160, torch.bfloat16, True),
+        (2, 4, 300, 300, 200, torch.bfloat16, False),
+        (2, 3, 130, 301, 256, torch.float32, True),
+    ]
+    err = 0.0
+    for b, h, lq, lk, d, dtype, causal in cases:
+        q, k, v = (
+            torch.randn((b, h, n, d), device="cuda", generator=gen).to(dtype) for n in (lq, lk, lk)
+        )
+        lens = torch.randint(1, lk + 1, (b,), device="cuda", generator=gen)
+        mask = (torch.arange(lk, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, mask, causal=causal)
+        check(flash_attention.launches == before + 1, f"flash D={d}: kernel not launched")
+        check(out.shape == q.shape and out.is_contiguous(), f"flash D={d}: bad output")
+        e = live_rows_err(out, reference_attention(q, k, v, mask, d ** -0.5, causal), mask)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        check(e <= tol, f"flash_attention [{b},{h},{lq}/{lk},{d}] {dtype} causal={causal}: "
+                        f"error {e}")
+        log(f"  flash_attention D={d} (the D=256 kernel) [{b},{h},{lq}/{lk},{d}] "
+            f"{str(dtype).split('.')[-1]} causal={causal}: max |err| on live rows {e:.3g}  ok")
+        if dtype == torch.bfloat16:
+            err = max(err, e)
+    b, h, l, d = 1, 16, 2048, 256
+    q, k, v = (torch.randn((b, h, l, d), device="cuda", generator=gen).bfloat16() for _ in range(3))
+    mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    e = live_rows_err(flash_attention(q, k, v, mask, causal=True),
+                      reference_attention(q, k, v, mask, scale, True), mask)
+    check(e <= 2e-2, f"flash_attention [{b},{h},{l},{d}] bf16 causal: error {e}")
+    err = max(err, e)
+    ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=True))
+    plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, True))
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    pairs = b * h * l * (l + 1) / 2
+    nbytes = 4 * q.numel() * 2 + mask.numel() * 4
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / BF16_FLOPS * 1e3
+    log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (gemma-7b's attention): max |err| "
+        f"{e:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention(is_causal) {library_ms:.4f} ms, bound "
+        f"{max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 products {op_ms:.4f})")
+    return {
+        "shape": [b, h, l, d],
+        "causal": True,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": library_ms,
+    }
 
 
 # -- phases 4 and 5: the main path -------------------------------------------
@@ -1538,6 +1621,294 @@ def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None 
             "phase_s": phase_s}
 
 
+# -- phase 12: the stdlib path on the card ------------------------------------------
+
+# Nexmark at Apache Beam's NexmarkConfiguration defaults: person : auction :
+# bid = 1 : 3 : 46 in every 50 events, 10,000 events/s of event time (one
+# event each 0.1 ms), windowSizeSec 10 and windowPeriodSec 5. 600,000
+# events (60 s of event time): at 1,000,000 the phase took 87 s on the host
+# of an NVIDIA H100 machine (PERF.md), over the minute it is given
+N_NEXMARK_EVENTS = 600_000
+NEXMARK_WINDOW_MS = 10_000
+NEXMARK_PERIOD_MS = 5_000
+
+
+def nexmark_events(n: int, seed: int = 0) -> dict:
+    """`n` Nexmark events from numpy.random.default_rng(seed) as column
+    arrays: kind (0 person, 1 auction, 2 bid), t (event time, ms), id
+    (person or auction id), seller (auction's), auction, bidder and price
+    (bid's). A new auction's seller is one of the 20 newest persons, a
+    bid's auction one of the 200 newest auctions, its bidder any person so
+    far."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n, dtype=np.int64)
+    slot = idx % 50
+    kind = np.where(slot == 0, 0, np.where(slot < 4, 1, 2))
+    t = idx // 10  # 10,000 events/s
+    last_pid = 1000 + idx // 50  # the newest person at each event
+    last_aid = 1000 + (idx // 50) * 3 + np.minimum(slot, 3) - 1  # the newest auction
+    ident = np.where(kind == 0, last_pid, np.where(kind == 1, last_aid, 0))
+    seller = np.where(kind == 1, np.maximum(1000, last_pid - rng.integers(0, 20, n)), 0)
+    auction = np.where(kind == 2, np.maximum(1000, last_aid - rng.integers(0, 200, n)), 0)
+    bidder = np.where(kind == 2, 1000 + rng.integers(0, 1 << 62, n) % (last_pid - 999), 0)
+    price = np.where(kind == 2, rng.integers(100, 100_000, n), 0)
+    return {"kind": kind, "t": t, "eid": ident, "seller": seller, "auction": auction,
+            "bidder": bidder, "price": price}
+
+
+def write_nexmark(directory: str, ev: dict, n_files: int = N_CHUNKS) -> None:
+    """The events as jsonlines, in time order over `n_files` files."""
+    names = ("person", "auction", "bid")
+    n = len(ev["t"])
+    per_file = -(-n // n_files)
+    cols = [ev[c].tolist() for c in ("kind", "t", "eid", "seller", "auction", "bidder", "price")]
+    for f in range(n_files):
+        lo, hi = f * per_file, min(n, (f + 1) * per_file)
+        with open(os.path.join(directory, f"events_{f:03d}.jsonl"), "w") as fh:
+            fh.write("\n".join(
+                json.dumps({"kind": names[k], "t": t, "eid": i, "seller": s, "auction": a,
+                            "bidder": b, "price": p})
+                for k, t, i, s, a, b, p in zip(*(c[lo:hi] for c in cols))
+            ))
+
+
+def nexmark_plain(ev: dict) -> dict:
+    """Q5, Q7 and Q8 in plain Python over the same events (dicts)."""
+    kind, t = ev["kind"].tolist(), ev["t"].tolist()
+    ident, seller = ev["eid"].tolist(), ev["seller"].tolist()
+    auction, bidder, price = ev["auction"].tolist(), ev["bidder"].tolist(), ev["price"].tolist()
+    w, h = NEXMARK_WINDOW_MS, NEXMARK_PERIOD_MS
+    counts: Counter = Counter()
+    top_price: dict = {}
+    persons: dict = {}
+    auctions_by_window: dict = {}
+    for i in range(len(t)):
+        if kind[i] == 2:
+            for start in ((t[i] // h) * h - h, (t[i] // h) * h):  # the two sliding windows
+                counts[(start, auction[i])] += 1
+            start = (t[i] // w) * w
+            top_price[start] = max(top_price.get(start, -1), price[i])
+        elif kind[i] == 0:
+            persons[ident[i]] = (t[i] // w) * w
+        else:
+            auctions_by_window.setdefault((t[i] // w) * w, []).append((ident[i], seller[i]))
+    most: dict = {}
+    for (start, _a), c in counts.items():
+        most[start] = max(most.get(start, 0), c)
+    q5 = Counter((s, a, c) for (s, a), c in counts.items() if c == most[s])
+    q7 = Counter(
+        ((t[i] // w) * w, auction[i], bidder[i], price[i])
+        for i in range(len(t)) if kind[i] == 2 and price[i] == top_price[(t[i] // w) * w]
+    )
+    q8 = Counter(
+        (s, a) for start, rows in auctions_by_window.items() for a, s in rows
+        if persons.get(s) == start
+    )
+    return {"q5": q5, "q7": q7, "q8": q8}
+
+
+def _nexmark_query(pw, events_dir: str, query: str):
+    class Event(pw.Schema):
+        kind: str
+        t: int
+        eid: int
+        seller: int
+        auction: int
+        bidder: int
+        price: int
+
+    ev = pw.io.jsonlines.read(events_dir, schema=Event, mode="static")
+    bids = ev.filter(ev.kind == "bid")
+    if query == "q5":  # hot items: the most-bid auctions of each sliding window
+        counts = pw.temporal.windowby(
+            bids, bids.t,
+            window=pw.temporal.sliding(hop=NEXMARK_PERIOD_MS, duration=NEXMARK_WINDOW_MS),
+            instance=bids.auction,
+        ).reduce(start=pw.this._pw_window_start, auction=pw.this._pw_instance,
+                 n=pw.reducers.count())
+        most = counts.groupby(counts.start).reduce(counts.start, m=pw.reducers.max(counts.n))
+        return counts.join(most, counts.start == most.start, counts.n == most.m).select(
+            start=counts.start, auction=counts.auction, n=counts.n
+        )
+    if query == "q7":  # highest bid of each tumbling window, joined back to the bids
+        top = pw.temporal.windowby(
+            bids, bids.t, window=pw.temporal.tumbling(duration=NEXMARK_WINDOW_MS)
+        ).reduce(start=pw.this._pw_window_start, p=pw.reducers.max(pw.this.price))
+        keyed = bids.with_columns(start=pw.this.t // NEXMARK_WINDOW_MS * NEXMARK_WINDOW_MS)
+        return keyed.join(top, keyed.start == top.start, keyed.price == top.p).select(
+            start=keyed.start, auction=keyed.auction, bidder=keyed.bidder, price=keyed.price
+        )
+    # q8, new users: persons who opened an auction in the window they joined
+    persons = ev.filter(ev.kind == "person")
+    auctions = ev.filter(ev.kind == "auction")
+    return persons.window_join(
+        auctions, persons.t, auctions.t, pw.temporal.tumbling(duration=NEXMARK_WINDOW_MS),
+        persons.eid == auctions.seller,
+    ).select(person=pw.left.eid, auction=pw.right.eid)
+
+
+def run_nexmark(card: str, n_events: int = N_NEXMARK_EVENTS) -> dict:
+    """12a: Nexmark Q5, Q7 and Q8 through pathway_tpu_torch's temporal
+    stdlib (fs jsonlines, static), each in its own run over the same
+    events, each final table equal to the plain-Python answer."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import runner as pw_runner
+
+    ev = nexmark_events(n_events)
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_nexmark(tmp, ev)
+        want = nexmark_plain(ev)
+        log(f"  {n_events} Nexmark events (persons {int((ev['kind'] == 0).sum())}, auctions "
+            f"{int((ev['kind'] == 1).sum())}, bids {int((ev['kind'] == 2).sum())}; "
+            f"{ev['t'][-1] / 1000:.1f} s of event time) in {N_CHUNKS} jsonlines files and the "
+            f"plain-Python answers in {time.perf_counter() - t0:.1f} s")
+        for query in ("q5", "q7", "q8"):
+            got: Counter = Counter()
+
+            def on_change(key, row, time, is_addition, got=got):  # noqa: A002
+                got[tuple(row.values())] += 1 if is_addition else -1
+
+            pw.G.clear()
+            t0 = time.perf_counter()
+            pw.io.subscribe(_nexmark_query(pw, tmp, query), on_change=on_change)
+            pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+            wall = time.perf_counter() - t0
+            pw.G.clear()
+            got = +got
+            check(got == want[query], f"Nexmark {query}: {sum(got.values())} rows, the plain "
+                  f"answer {sum(want[query].values())}; {len(got - want[query])} rows not in it")
+            rates[query] = n_events / wall
+            log(f"  Nexmark {query.upper()}: {sum(got.values())} result rows equal to the "
+                f"plain-Python answer; {wall:.2f} s, {rates[query]:.1f} events/s  ok [{card}]")
+    # the last run's engine, which `last_engine()` keeps, holds every
+    # event's state: drop it, as 9a drops its own, before the next phases
+    pw_runner._last_engine = None
+    gc.collect()
+    return rates
+
+
+N_ML_ROWS = 65536
+N_ML_LABELS = 64
+
+
+def ml_vectors(n: int, d: int, n_labels: int, n_queries: int, seed: int = 0):
+    """Clustered vectors with varying norms, their labels, and queries near
+    the label centers (so each query's neighbours agree on a label)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_labels, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    labels = rng.integers(0, n_labels, n)
+    x = centers[labels] + 0.6 * rng.standard_normal((n, d)) / math.sqrt(d)
+    x *= rng.uniform(0.5, 1.5, (n, 1))
+    qlab = rng.integers(0, n_labels, n_queries)
+    q = centers[qlab] + 0.3 * rng.standard_normal((n_queries, d)) / math.sqrt(d)
+    return x.astype(np.float32), labels, q.astype(np.float32)
+
+
+def run_stdlib_ml(card: str, n_rows: int = N_ML_ROWS, device=None) -> dict:
+    """12b: pw.ml on the card. KNNIndex (euclidean: knn_topk's l2sq;
+    cosine: cos) over `n_rows` seeded vectors of width 384, 32 queries in
+    one engine batch, k = 6, ids and scores against numpy's exact answer in
+    float64; then knn_lsh_classifier_train against a numpy majority vote."""
+    import pathway_tpu_torch as pw
+
+    x, labels, q = ml_vectors(n_rows, DIM, N_ML_LABELS, N_QUERIES)
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    # the exact scores: negated squared distance (higher is better), cosine
+    exact_of = {
+        "euclidean": -((q64 ** 2).sum(1)[:, None] - 2 * q64 @ x64.T + (x64 ** 2).sum(1)[None, :]),
+        "cosine": (q64 / np.linalg.norm(q64, axis=1, keepdims=True))
+        @ (x64 / np.linalg.norm(x64, axis=1, keepdims=True)).T,
+    }
+    t_all = time.perf_counter()
+    out = {}
+    for distance_type in ("euclidean", "cosine"):
+        pw.G.clear()
+        t0 = time.perf_counter()
+        data = pw.debug.table_from_rows(
+            pw.schema_from_types(data=np.ndarray, label=int, idx=int),
+            [(x[i], int(labels[i]), i) for i in range(n_rows)],
+        )
+        queries = pw.debug.table_from_rows(
+            pw.schema_from_types(data=np.ndarray, qi=int), [(q[i], i) for i in range(len(q))]
+        )
+        index = pw.ml.index.KNNIndex(
+            data.data, data, n_dimensions=DIM, distance_type=distance_type, device=device
+        )
+        found = {}
+
+        def on_change(key, row, time, is_addition):  # noqa: A002
+            if is_addition:
+                found[row["qi"]] = (row["idx"], row["_pw_index_reply_score"])
+
+        pw.io.subscribe(index.get_nearest_items(queries.data, k=K), on_change=on_change)
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+        pw.G.clear()
+        wall = time.perf_counter() - t0
+        check(sorted(found) == list(range(len(q))), f"KNNIndex {distance_type}: answers for "
+              f"{len(found)} of {len(q)} queries")
+        exact = exact_of[distance_type]
+        want_ids = np.argsort(-exact, axis=1)[:, :K]
+        got_ids = np.array([found[i][0] for i in range(len(q))])
+        got_scores = np.array([found[i][1] for i in range(len(q))], dtype=np.float64)
+        err = float(np.abs(got_scores - np.take_along_axis(exact, got_ids, 1)).max())
+        check(err <= 1e-4, f"KNNIndex {distance_type}: score error against numpy {err:.3g}")
+        want_scores = np.take_along_axis(exact, want_ids, 1)
+        knn_sets_agree(torch.from_numpy(got_scores), torch.from_numpy(got_ids),
+                       torch.from_numpy(want_scores), torch.from_numpy(want_ids))
+        exact_rows = int((got_ids == want_ids).all(1).sum())
+        log(f"  pw.ml KNNIndex(distance_type={distance_type!r}) over {n_rows} rows, d = {DIM}, "
+            f"{len(q)} queries in one batch, k = {K}: ids equal to numpy's in order in "
+            f"{exact_rows}/{len(q)}, the rest within near-ties; max score error {err:.3g}; "
+            f"{wall:.2f} s  ok [{card}]")
+        out[distance_type] = {"max_score_err": err, "seconds": wall}
+
+    # the KNN classifier: a numpy majority vote over the same 6 neighbours
+    from pathway_tpu_torch.internals import health
+
+    throttles = health.controller().status()["actions"]["throttle"]
+    pw.G.clear()
+    t0 = time.perf_counter()
+    data = pw.debug.table_from_rows(
+        pw.schema_from_types(data=np.ndarray, label=int),
+        [(x[i], int(labels[i])) for i in range(n_rows)],
+    )
+    queries = pw.debug.table_from_rows(
+        pw.schema_from_types(data=np.ndarray, qi=int), [(q[i], i) for i in range(len(q))]
+    )
+    classify = pw.ml.classifiers.knn_lsh_classifier_train(
+        data, type="euclidean", d=DIM, device=device
+    )
+    labelled = classify(queries, k=K)  # keyed by the queries' keys
+    labelled = labelled.select(labelled.predicted_label, qi=queries.restrict(labelled).qi)
+    by_query = {}
+
+    def on_label(key, row, time, is_addition):  # noqa: A002
+        if is_addition:
+            by_query[row["qi"]] = row["predicted_label"]
+
+    pw.io.subscribe(labelled, on_change=on_label)
+    pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    pw.G.clear()
+    predicted = [by_query.get(i) for i in range(len(q))]
+    votes = []
+    for row in np.argsort(-exact_of["euclidean"], axis=1)[:, :K]:
+        (label, n), *rest = Counter(labels[row].tolist()).most_common()
+        check(not rest or rest[0][1] < n, "a numpy majority vote is tied: pick another seed")
+        votes.append(label)
+    check(predicted == votes,
+          f"knn_lsh_classifier_train: {predicted} against numpy's {votes}")
+    wall = time.perf_counter() - t0
+    throttles = health.controller().status()["actions"]["throttle"] - throttles
+    log(f"  pw.ml knn_lsh_classifier_train(d={DIM}) + classify(k={K}) over {n_rows} rows: "
+        f"{len(predicted)} labels equal to a numpy majority vote; {wall:.2f} s ({throttles} "
+        f"health-controller throttle actions); phase 12b {time.perf_counter() - t_all:.1f} s  "
+        f"ok [{card}]")
+    return out
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -1683,6 +2054,7 @@ def main() -> int:
     flash_row = check_flash(flash_attention, reference_attention, gen)
     decoder_shape = check_flash_decoder_shape(flash_attention, reference_attention)
     check_padded_shapes(knn_topk, flash_attention, reference_attention)
+    d256_shape = check_flash_d256(flash_attention, reference_attention)
 
     log("[4] main path: ingest, 2^20-row index, retrieval")
     docs = make_docs(N_DOCS, random.Random(0))
@@ -1707,7 +2079,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     decoder = run_decoder(card, flash_attention)
     decoder_shape["launches"] = decoder["launches"]
-    flash_row["shapes"] = [decoder_shape]
+    flash_row["shapes"] = [decoder_shape, d256_shape]
     log(f"  flash_attention launches on the decoder path (generate): {decoder['launches']}")
     log(f"  decoder phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -1768,6 +2140,30 @@ def main() -> int:
     log(f"  launches on the RAG server path: flash_attention {rag['flash_attention']} (the 7B "
         f"prefills, L > 256, D = 128), knn_topk {rag['knn_topk']} (the fused search is dense "
         f"similarity + top-k, as the JAX package's)")
+
+    log("[12] the stdlib path: pw.temporal over Nexmark, pw.ml on the card, before phase 8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    t_phase = time.perf_counter()
+    run_nexmark(card)
+    temporal_launches = {"knn_topk": knn_topk.launches, "flash_attention": flash_attention.launches}
+    check(knn_topk.launches == 0 and flash_attention.launches == 0,
+          "the temporal stdlib launched a kernel")
+    log(f"  phase 12a {time.perf_counter() - t_phase:.1f} s; kernel launches: 0 (host only)")
+    gc.collect()
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    run_stdlib_ml(card)
+    check(knn_topk.launches > 0, "pw.ml's KNNIndex launched no knn_topk kernel")
+    knn_row["launches_by_path"]["stdlib_temporal"] = temporal_launches["knn_topk"]
+    knn_row["launches_by_path"]["stdlib_ml"] = knn_topk.launches
+    flash_row["launches_by_path"]["stdlib_temporal"] = temporal_launches["flash_attention"]
+    flash_row["launches_by_path"]["stdlib_ml"] = flash_attention.launches
+    log(f"  launches on the pw.ml path: knn_topk {knn_topk.launches} (KNNIndex l2sq and cos, "
+        f"the classifier's index), flash_attention {flash_attention.launches}; phase 12 "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     log("[8] the framework path on the card's host")
     gc.collect()

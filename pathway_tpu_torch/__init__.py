@@ -15,6 +15,12 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
     `DocumentStore`, prompts, chats (`HFPipelineChat` on the decoder),
     rerankers, RAG question answering, and the REST, vector-store and
     MCP servers over `pw.io.http`;
+  * the rest of the stdlib, copied from the JAX package: `pw.temporal`
+    (windows, behaviors, asof / asof-now / interval / window joins,
+    grafted onto `Table` as there), `pw.ordered` (`Table.diff`),
+    `pw.stateful`, `pw.statistical`, `pw.utils`, `pw.ml` (`KNNIndex`
+    on the card's knn_topk), `pw.graphs`, `pw.viz` (over
+    internals/interactive.py) and `pw.xpacks.connectors` (SharePoint);
   * the MiniLM-class encoder, the cross-encoder and the decoder
     (models/), the device KNN
     index and the fused embed+search object (ops/knn.py), and
@@ -34,10 +40,10 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-The rest of the stdlib (temporal, ordered, stateful, statistical, ml, ...),
-xpacks/connectors, the connectors other than fs / csv / jsonlines /
-plaintext / python / null / s3 / http, and the static analyzer are not
-ported yet.
+Not ported yet: `pw.sql`, `pw.load_yaml`, `pw.demo`, the cli, the
+connectors other than fs / csv / jsonlines / plaintext / python / null /
+s3 / http, the static analyzer, training, the device mesh and the
+profiler.
 """
 
 from __future__ import annotations
@@ -146,10 +152,58 @@ from pathway_tpu_torch import stdlib  # noqa: E402
 from pathway_tpu_torch import universes  # noqa: E402
 from pathway_tpu_torch.internals import udfs  # noqa: E402
 from pathway_tpu_torch.internals.udfs import UDF, udf  # noqa: E402
-from pathway_tpu_torch.stdlib import indexing  # noqa: E402
+from pathway_tpu_torch.stdlib import indexing, ml, ordered, stateful, statistical  # noqa: E402
+from pathway_tpu_torch.stdlib import temporal  # noqa: E402
+from pathway_tpu_torch.stdlib import utils  # noqa: E402
+from pathway_tpu_torch.stdlib import viz  # noqa: E402
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
+from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
+    intervals_over,
+    session,
+    sliding,
+    tumbling,
+)
 
-# the pre-rename name of the udfs module, bound as the JAX package binds it
+# the stdlib entry points grafted onto the pw namespace and onto Table, as
+# the JAX package grafts them
+windowby = temporal.windowby
+
+Table.diff = ordered.diff
+
+Table.asof_join = temporal.asof_join
+Table.asof_join_left = temporal.asof_join_left
+Table.asof_join_right = temporal.asof_join_right
+Table.asof_join_outer = temporal.asof_join_outer
+
+Table.asof_now_join = temporal.asof_now_join
+Table.asof_now_join_inner = temporal.asof_now_join_inner
+Table.asof_now_join_left = temporal.asof_now_join_left
+
+Table.window_join = temporal.window_join
+Table.window_join_inner = temporal.window_join_inner
+Table.window_join_left = temporal.window_join_left
+Table.window_join_right = temporal.window_join_right
+Table.window_join_outer = temporal.window_join_outer
+
+Table.interval_join = temporal.interval_join
+Table.interval_join_inner = temporal.interval_join_inner
+Table.interval_join_left = temporal.interval_join_left
+Table.interval_join_right = temporal.interval_join_right
+Table.interval_join_outer = temporal.interval_join_outer
+
+Table.windowby = temporal.windowby
+Table.interpolate = statistical.interpolate
+Table.inactivity_detection = temporal.inactivity_detection
+
+# names bound as the JAX package binds them: the pre-rename name of the
+# udfs module, and the window types' namespace
 asynchronous = udfs
+window = temporal
+from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
+    AsofJoinResult,
+    IntervalJoinResult,
+    WindowJoinResult,
+)
 
 
 def __getattr__(name):
@@ -161,6 +215,14 @@ def __getattr__(name):
         import pathway_tpu_torch.persistence as p
 
         return p
+    if name == "graphs":
+        from pathway_tpu_torch.stdlib import graphs as g
+
+        return g
+    if name in ("enable_interactive_mode", "LiveTable"):
+        from pathway_tpu_torch.internals import interactive
+
+        return getattr(interactive, name)
     if name == "MonitoringLevel":
         from pathway_tpu_torch.internals.monitoring import MonitoringLevel as m
 

@@ -47,6 +47,8 @@
 //   flash_fwd_f32 (f32, in flash_attention_f32.cu): the simple design, one
 //     thread per query row on the CUDA cores. It serves f32 callers (tests,
 //     f32 configs), not the bf16 encoder or decoder.
+//   flash_fwd_rows (D = 256, bf16 and f32, in flash_attention_d256.cu): one
+//     warp per query row on the CUDA cores, for heads above 128.
 //
 // The sequential kv grid axis of the TPU kernel becomes the loop over kv
 // tiles inside a block. Keys past the end of the sequence take no part;
@@ -477,9 +479,15 @@ int pwt_flash_attention_f32_fwd(const void* q, const void* k, const void* v, con
                                 void* o, int B, int H, int Lq, int Lk, int D, float sm_scale,
                                 int causal, void* stream);
 
+// flash_attention_d256.cu: the D = 256 kernel (one warp per query row),
+// for bf16 and f32 inputs
+int pwt_flash_attention_d256_fwd(const void* q, const void* k, const void* v,
+                                 const void* kv_mask, void* o, int B, int H, int Lq, int Lk,
+                                 float sm_scale, int causal, int is_bf16, void* stream);
+
 // q: [B, H, Lq, D], k / v: [B, H, Lk, D], all contiguous, f32 or bf16
 // (is_bf16; bf16 pointers 16-byte aligned); kv_mask: [B, Lk] int32
-// (1 = live key); o: like q. D in {16, 32, 64, 128}.
+// (1 = live key); o: like q. D in {16, 32, 64, 128, 256}.
 int pwt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             const void* kv_mask, void* o, int B, int H, int Lq,
                             int Lk, int D, float sm_scale, int causal, int is_bf16,
@@ -495,6 +503,9 @@ int pwt_flash_attention_fwd(const void* q, const void* k, const void* v,
         case 32: return (int)launch_bf16<32>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
         case 64: return (int)launch_bf16<64>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
         case 128: return (int)launch_bf16<128>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
+        case 256:
+            return pwt_flash_attention_d256_fwd(q, k, v, kv_mask, o, B, H, Lq, Lk, sm_scale,
+                                                causal, 1, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -5,9 +5,10 @@ Counterpart of pathway_tpu/ops/kernels/flash_attention.py. The kernel
 state and never writes the [L, L] scores; bf16 inputs go through the
 tensor cores (wgmma, with k and v brought in by TMA), f32 inputs through
 a simple CUDA-core kernel. The kernel has instances at head dims 16, 32,
-64 (the encoders) and 128 (the decoder's prefill); the wrapper pads any
-other head dim up to 128 with zero columns, which add nothing to q k^T or
-to P v, and slices the output back.
+64 (the encoders), 128 (the decoder's prefill) and 256 (heads above 128,
+one warp per query row on the CUDA cores, csrc/flash_attention_d256.cu);
+the wrapper pads any other head dim up to 256 with zero columns, which add
+nothing to q k^T or to P v, and slices the output back.
 `reference_attention` is the
 plain version, the same function as the JAX package's
 `_reference_attention`; the wrapper takes it only for tensors on the CPU.
@@ -27,7 +28,7 @@ import torch
 from pathway_tpu_torch.ops.kernels import _build
 from pathway_tpu_torch.ops.kernels.knn_topk import NEG_INF
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def padded_head_dim(d: int) -> int:

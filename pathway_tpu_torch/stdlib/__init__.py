@@ -1,8 +1,23 @@
-"""Standard library (reference: python/pathway/stdlib).
+"""Standard library (reference: python/pathway/stdlib)."""
 
-The port has `indexing` so far; temporal, ordered, stateful, statistical,
-ml, graphs, viz and utils are still to come (ROADMAP, Queue 1, item 1.4)."""
+from pathway_tpu_torch.stdlib import (
+    graphs,
+    indexing,
+    ml,
+    ordered,
+    stateful,
+    statistical,
+    temporal,
+    utils,
+)
 
-from pathway_tpu_torch.stdlib import indexing
-
-__all__ = ["indexing"]
+__all__ = [
+    "graphs",
+    "indexing",
+    "ml",
+    "ordered",
+    "stateful",
+    "statistical",
+    "temporal",
+    "utils",
+]

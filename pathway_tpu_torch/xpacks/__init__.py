@@ -1,8 +1,5 @@
-"""Extension packs (reference: python/pathway/xpacks).
+"""Extension packs (reference: python/pathway/xpacks)."""
 
-The port has `llm` so far; `connectors` is still to come (ROADMAP, Queue 1,
-item 1.4)."""
+from pathway_tpu_torch.xpacks import connectors, llm
 
-from pathway_tpu_torch.xpacks import llm
-
-__all__ = ["llm"]
+__all__ = ["connectors", "llm"]

@@ -190,6 +190,20 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (2, 3, 77, 77, 48, torch.float32, False),
         (2, 4, 300, 300, 80, torch.bfloat16, False),
         (2, 2, 130, 301, 80, torch.float32, True),
+        # head dim 256 (one warp per query row) and 160 / 200 padded to it
+        (2, 4, 300, 300, 256, torch.bfloat16, True),
+        (2, 4, 300, 300, 256, torch.bfloat16, False),
+        (2, 2, 1, 77, 256, torch.bfloat16, False),  # Lq = 1
+        (2, 3, 130, 301, 256, torch.bfloat16, True),  # Lq != Lk
+        (2, 4, 300, 300, 256, torch.float32, True),
+        (2, 2, 130, 301, 256, torch.float32, False),
+        (2, 2, 1, 77, 256, torch.float32, True),
+        (2, 4, 200, 200, 160, torch.bfloat16, True),
+        (2, 3, 77, 77, 160, torch.bfloat16, False),
+        (2, 3, 130, 301, 160, torch.float32, False),
+        (2, 4, 200, 200, 200, torch.bfloat16, False),
+        (2, 3, 300, 300, 200, torch.bfloat16, True),
+        (2, 2, 200, 200, 200, torch.float32, True),
     ],
 )
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
@@ -207,7 +221,7 @@ def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):
-    q = torch.zeros((1, 2, 8, 160), device=card)  # above the largest instance
+    q = torch.zeros((1, 2, 8, 257), device=card)  # above the largest instance
     with pytest.raises(ValueError, match="head dim"):
         kernels.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 8, 32), device=card)

@@ -1,10 +1,12 @@
 """Drift guard: the port's host framework is a copy of the JAX package's.
 
-The engine, Table DSL, connectors (pw.io.http with its REST server
-among them), persistence, debug, observability, UDF, stdlib indexing and
-LLM xpack modules (RAG question answering, prompts, chats, rerankers and
-the REST / MCP servers among them) under pathway_tpu_torch/ were copied
-whole from pathway_tpu/,
+The engine, Table DSL (with internals/interactive.py), connectors
+(pw.io.http with its REST server among them), persistence, debug,
+observability, UDF, stdlib (indexing, temporal windows and joins,
+ordered, stateful, statistical, utils, ml, graphs, viz) and xpack
+modules (the LLM xpack with RAG question answering, prompts, chats,
+rerankers and the REST / MCP servers, and xpacks/connectors) under
+pathway_tpu_torch/ were copied whole from pathway_tpu/,
 with `pathway_tpu` rewritten to `pathway_tpu_torch`. For each one, the
 port's file (with `pathway_tpu_torch` read as `pathway_tpu`) and the JAX
 file must parse to the same syntax tree once docstrings are stripped:
@@ -74,8 +76,14 @@ EDITED = {
         "CUDA card) and passes it to SentenceEncoder.cached; the JAX package "
         "ignores its device='tpu'"
     ),
-    "stdlib/__init__.py": "imports indexing only; the rest of the stdlib is not ported yet",
-    "xpacks/__init__.py": "imports llm only; xpacks/connectors is not ported yet",
+    "stdlib/ml/index.py": (
+        "KNNIndex(device=None) places its BruteForceKnn index (None: the CUDA card) "
+        "and passes it to BruteForceKnn(device=); the JAX package's KNNIndex takes no device"
+    ),
+    "stdlib/ml/classifiers.py": (
+        "knn_lsh_classifier_train passes kwargs.get('device') to KNNIndex, so the "
+        "classifier's index is placed as KNNIndex's is (None: the CUDA card)"
+    ),
     "xpacks/llm/llms.py": (
         "HFPipelineChat(device=None) places the decoder (None: the CUDA card) and "
         "passes it to ChatModel.cached; the JAX package ignores its device='tpu'"

@@ -82,6 +82,8 @@ def test_importing_the_port_loads_no_jax():
         "from pathway_tpu_torch.xpacks.llm import llms, prompts, rerankers, question_answering\n"
         "from pathway_tpu_torch.xpacks.llm import servers, vector_store, mcp_server\n"
         "pw.io.http.PathwayWebserver, pw.xpacks.llm.servers.QASummaryRestServer\n"
+        "import pathway_tpu_torch.stdlib.graphs, pathway_tpu_torch.xpacks.connectors.sharepoint\n"
+        "pw.temporal.windowby, pw.ml.index.KNNIndex, pw.ordered.diff, pw.viz.show, pw.LiveTable\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"

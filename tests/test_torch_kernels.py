@@ -126,7 +126,9 @@ def test_flash_plain_matches_jax_reference_all_rows(causal):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d, d_pad", [(24, 32), (48, 64), (80, 128), (8, 16)])
+@pytest.mark.parametrize(
+    "d, d_pad", [(24, 32), (48, 64), (80, 128), (8, 16), (160, 256), (200, 256)]
+)
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_head_dim_padding_leaves_the_plain_result(d, d_pad, causal):
     """What the wrapper does on the card for a head dim without a kernel
@@ -156,8 +158,16 @@ def test_flash_head_dim_above_the_largest_instance_has_no_kernel():
     from pathway_tpu_torch.ops.kernels.flash_attention import padded_head_dim
 
     assert padded_head_dim(128) == 128
+    assert padded_head_dim(256) == 256
     with pytest.raises(ValueError, match="head dim"):
-        padded_head_dim(129)
+        padded_head_dim(257)
+
+
+@pytest.mark.parametrize("d", [129, 160, 200, 255, 256])
+def test_flash_head_dims_129_to_256_pad_to_the_256_instance(d):
+    from pathway_tpu_torch.ops.kernels.flash_attention import padded_head_dim
+
+    assert padded_head_dim(d) == 256
 
 
 def test_flash_bf16_plain_keeps_dtype():
