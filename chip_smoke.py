@@ -14,7 +14,8 @@ width with random weights from a seed:
      CUDA-event medians of kernel, plain and library-call times (knn_topk
      at the main path's Q = 32, k = 6 and at Q = 1 / k = 6, Q = 64 / k = 6,
      Q = 64 / k = 128; flash at the encoder's [64, 12, 512, 32] and, causal
-     with a ragged mask, at the decoder prefill's [8, 32, 1024, 128]);
+     with a ragged mask, at the decoder prefill's [8, 32, 1024, 128], and
+     at head dim 256, [1, 16, 2048, 256] causal);
   4. main path: 16,384 bench-style docs ingested packed
      (FusedEmbedSearch.prepare_batch + dispatch_batch) and classic
      (embed_and_add), the index filled to 1,048,576 live rows on the device,
@@ -88,13 +89,16 @@ width with random weights from a seed:
      labels against a numpy majority vote;
  11. the card's line, one `kernels` JSON line, then the `ok` JSON line.
 
-Phase 3 also holds the two shape repairs: DeviceKnnIndex at dimensions
-2, 3 and 6 (rows padded to 16 bytes for the kernel) against the same
-index on the CPU, and flash at head dims 24, 48 and 80 (zero-padded to
-the next kernel instance) against the plain version; and flash's head-dim
-256 instance (head dims 160 and 200 padded to it) against the plain
-version, timed at [1, 16, 2048, 256] causal beside
-scaled_dot_product_attention.
+Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
+(wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
+flash_fwd_rows<float,256> (f32, one warp per query row). It also holds the
+two shape repairs: DeviceKnnIndex at dimensions 2, 3 and 6 (rows padded to
+16 bytes for the kernel) against the same index on the CPU, and flash at
+head dims 24, 48 and 80 (zero-padded to the next kernel instance) against
+the plain version; and the head-dim 256 instances (head dims 160 and 200
+padded to them) against the plain version, timed at [1, 16, 2048, 256]
+causal beside scaled_dot_product_attention. At D = 128 and 256 it prints
+the products' share of the tensor cores' peak beside the times.
 
 Every check raises on failure, so a failed phase exits non-zero and prints
 no `ok` line. Imports torch, numpy and pathway_tpu_torch only.
@@ -355,6 +359,7 @@ def check_flash(flash_attention, reference_attention, gen) -> dict:
     return {
         "name": "flash_attention",
         "route": "cuda",
+        "instances": ["flash_fwd_bf16<16|32|64|128|256>", "flash_fwd_rows<float,256>"],
         "source": "pathway_tpu_torch/ops/kernels/csrc/flash_attention.cu",
         "replaces": "pathway_tpu/ops/kernels/flash_attention.py:25",
         "max_abs_err": err,
@@ -398,15 +403,17 @@ def check_flash_decoder_shape(flash_attention, reference_attention) -> dict:
     pairs = b * h * l * (l + 1) / 2
     nbytes = 4 * q.numel() * 2 + mask.numel() * 4
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / BF16_FLOPS * 1e3
-    log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention(is_causal) {library_ms:.4f} ms, "
-        f"bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 products {op_ms:.4f}), "
-        f"exp floor {pairs / EXP_PER_S * 1e3:.4f} ms")
+    log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (flash_fwd_bf16<128>, ping-pong): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention(is_causal) "
+        f"{library_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 "
+        f"products {op_ms:.4f}), exp floor {pairs / EXP_PER_S * 1e3:.4f} ms; the products' share "
+        f"of the tensor cores' peak {op_ms / ms:.3f} (SDPA {op_ms / library_ms:.3f})")
     return {
         "shape": [b, h, l, d],
         "causal": True,
         "max_abs_err": err,
         "ms": ms,
+        "tensor_core_share": op_ms / ms,
         "plain_ms": plain_ms,
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -470,12 +477,14 @@ def check_padded_shapes(knn_topk, flash_attention, reference_attention) -> None:
 
 
 def check_flash_d256(flash_attention, reference_attention) -> dict:
-    """Flash at head dim 256 (one warp per query row) and at 160 and 200
-    through the padding, against the plain version on rows with a live key
-    (bf16 2e-2, f32 1e-4, the other instances' tolerances), then its time
-    at gemma-7b's attention geometry [1, 16, 2048, 256] causal bf16 beside
-    scaled_dot_product_attention(is_causal=True) and the bound. Its own
-    generator, so the draws of the other checks stay as they were."""
+    """Flash at head dim 256 (bf16: flash_fwd_bf16<256>, wgmma + TMA with
+    the ping-pong schedule; f32: flash_fwd_rows<float,256>) and at 160 and
+    200 through the padding, against the plain version on rows with a live
+    key (bf16 2e-2, f32 1e-4, the other instances' tolerances), then its
+    time at gemma-7b's attention geometry [1, 16, 2048, 256] causal bf16
+    beside scaled_dot_product_attention(is_causal=True), the bound and the
+    products' share of the tensor cores' peak. Its own generator, so the
+    draws of the other checks stay as they were."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -502,7 +511,8 @@ def check_flash_d256(flash_attention, reference_attention) -> dict:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         check(e <= tol, f"flash_attention [{b},{h},{lq}/{lk},{d}] {dtype} causal={causal}: "
                         f"error {e}")
-        log(f"  flash_attention D={d} (the D=256 kernel) [{b},{h},{lq}/{lk},{d}] "
+        kernel = "flash_fwd_rows<float,256>" if dtype == torch.float32 else "flash_fwd_bf16<256>"
+        log(f"  flash_attention D={d} ({kernel}) [{b},{h},{lq}/{lk},{d}] "
             f"{str(dtype).split('.')[-1]} causal={causal}: max |err| on live rows {e:.3g}  ok")
         if dtype == torch.bfloat16:
             err = max(err, e)
@@ -520,15 +530,18 @@ def check_flash_d256(flash_attention, reference_attention) -> dict:
     pairs = b * h * l * (l + 1) / 2
     nbytes = 4 * q.numel() * 2 + mask.numel() * 4
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / BF16_FLOPS * 1e3
-    log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (gemma-7b's attention): max |err| "
-        f"{e:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention(is_causal) {library_ms:.4f} ms, bound "
-        f"{max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 products {op_ms:.4f})")
+    log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (gemma-7b's attention, "
+        f"flash_fwd_bf16<256>, ping-pong): max |err| {e:.3g}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention(is_causal) {library_ms:.4f} ms, bound "
+        f"{max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 products {op_ms:.4f}); the "
+        f"products' share of the tensor cores' peak {op_ms / ms:.3f} (SDPA "
+        f"{op_ms / library_ms:.3f})")
     return {
         "shape": [b, h, l, d],
         "causal": True,
         "max_abs_err": err,
         "ms": ms,
+        "tensor_core_share": op_ms / ms,
         "plain_ms": plain_ms,
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",

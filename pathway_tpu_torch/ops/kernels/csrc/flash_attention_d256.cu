@@ -1,8 +1,9 @@
-// Flash attention forward at head dim 256, for bf16 and f32 inputs: the
-// simple design that flash_attention.cu (bf16) and flash_attention_f32.cu
-// (f32) call for D = 256 (the wrapper pads any head dim in 129..256 to it).
+// Flash attention forward at head dim 256 for f32 inputs: the simple
+// design that flash_attention_f32.cu calls for D = 256 (the wrapper pads any
+// head dim in 129..256 to it). bf16 inputs at D = 256 take the tensor-core
+// kernel, flash_fwd_bf16<256> in flash_attention.cu.
 //
-// Replaces, at head dims above 128, the Pallas TPU kernel
+// Replaces, at head dims above 128 in f32, the Pallas TPU kernel
 // pathway_tpu/ops/kernels/flash_attention.py (`_kernel`): online-softmax
 // attention over [B, H, L, D] with f32 running max, normaliser and
 // accumulator, a kv padding mask applied as an additive -1e30, an optional
@@ -10,27 +11,23 @@
 // by 1; keys past the end of the sequence take no part, so a row with no
 // live key averages v over its keys as the reference does.
 //
-// What bounds it on this card: at gemma-7b's attention geometry
-// [1, 16, 2048, 256], causal, bf16, the products (4 B H L^2 D / 2 = 34 G
-// FLOP) take 0.035 ms at 989 TFLOP/s and the bytes of q, k, v and o 0.020
-// ms at 3.35 TB/s. This kernel does not reach the tensor cores: it is
-// right and simple first. The D = 128 design (a wgmma / TMA ring) would
-// need four 64-column boxes a tile and more shared memory than its ring
-// has, and the f32 kernel's one thread per query row would hold 512 floats
-// of q and accumulator a thread. Here one warp owns one query row: each
-// lane holds D / 32 = 8 neighbouring columns of q and of the f32
-// accumulator in registers, a score is the lanes' partial dot products
-// summed by a butterfly of shuffles (so every lane holds every score of
-// the tile), and the exps and the P v update run on the CUDA cores.
-// ROWS query rows of one (batch, head) share each 32-key tile of k and v,
-// stored in shared memory in the input type (32 KB a tile pair in bf16,
-// 64 KB in f32), read as 16-byte vectors along a row: no bank conflicts.
-// Each warp reads the whole tile pair from shared memory for its one row,
-// so shared-memory bandwidth and the shuffle chains, not the products,
-// set its time.
+// What bounds it on this card: f32 products run on the CUDA cores (67
+// TFLOP/s, H100 SXM data sheet at 700 W), where the tensor cores would take
+// f32 only as TF32, which f32 callers (the tests' 1e-4) do not accept. The
+// f32 kernel of flash_attention_f32.cu keeps a row in one thread, which at
+// D = 256 would hold 512 floats of q and accumulator a thread. Here one warp
+// owns one query row: each lane holds D / 32 = 8 neighbouring columns of q
+// and of the accumulator in registers, a score is the lanes' partial dot
+// products summed by a butterfly of shuffles (so every lane holds every
+// score of the tile), and the exps and the P v update run on the CUDA
+// cores. ROWS query rows of one (batch, head) share each 32-key tile of k
+// and v, stored in shared memory (64 KB a tile pair), read as 16-byte
+// vectors along a row: no bank conflicts. Each warp reads the whole tile
+// pair from shared memory for its one row, so shared-memory bandwidth and
+// the shuffle chains, not the products, set its time. It serves f32
+// callers (tests, f32 configs) only.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
@@ -42,7 +39,7 @@ constexpr int ROWS = 16;           // query rows (warps) per block
 constexpr int NT = ROWS * 32;      // threads per block
 constexpr int PER_LANE = 8;        // columns a lane owns (D / 32 at D = 256)
 
-// 8 neighbouring values as f32, from global or shared memory (16-byte aligned)
+// 8 neighbouring floats from global or shared memory (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, float out[PER_LANE]) {
     const float4 a = reinterpret_cast<const float4*>(p)[0];
     const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -50,28 +47,9 @@ __device__ __forceinline__ void load8(const float* p, float out[PER_LANE]) {
     out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[PER_LANE]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        out[2 * i] = f.x;
-        out[2 * i + 1] = f.y;
-    }
-}
-
 __device__ __forceinline__ void store8(float* p, const float v[PER_LANE]) {
     reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
     reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[PER_LANE]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
 }
 
 // grid: (B*H, ceil(Lq / ROWS)); block: NT threads; dynamic shared memory:
@@ -187,21 +165,17 @@ flash_fwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
 }
 
-template <typename T>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, const int32_t* mask,
-                        void* o, int B, int H, int Lq, int Lk, float sm_scale, int causal,
+cudaError_t launch_rows(const float* q, const float* k, const float* v, const int32_t* mask,
+                        float* o, int B, int H, int Lq, int Lk, float sm_scale, int causal,
                         cudaStream_t stream) {
     constexpr int D = 256;
-    constexpr int smem = 2 * BK * D * (int)sizeof(T) + BK * (int)sizeof(float);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            flash_fwd_rows<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-    }
+    constexpr int smem = 2 * BK * D * (int)sizeof(float) + BK * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_rows<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
     dim3 grid(B * H, (Lq + ROWS - 1) / ROWS);
-    flash_fwd_rows<T, D><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-        static_cast<T*>(o), H, Lq, Lk, sm_scale, causal);
+    flash_fwd_rows<float, D><<<grid, NT, smem, stream>>>(q, k, v, mask, o, H, Lq, Lk, sm_scale,
+                                                         causal);
     return cudaGetLastError();
 }
 
@@ -209,19 +183,15 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const int32
 
 extern "C" {
 
-// q: [B, H, Lq, 256], k / v: [B, H, Lk, 256], all contiguous and 16-byte
-// aligned, bf16 (is_bf16) or f32; kv_mask: [B, Lk] int32 (1 = live key);
-// o: like q.
+// f32 q: [B, H, Lq, 256], k / v: [B, H, Lk, 256], all contiguous and
+// 16-byte aligned; kv_mask: [B, Lk] int32 (1 = live key); o: like q.
 int pwt_flash_attention_d256_fwd(const void* q, const void* k, const void* v,
                                  const void* kv_mask, void* o, int B, int H, int Lq, int Lk,
-                                 float sm_scale, int causal, int is_bf16, void* stream) {
-    const int32_t* mask = static_cast<const int32_t*>(kv_mask);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (is_bf16) {
-        return (int)launch_rows<__nv_bfloat16>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale,
-                                               causal, st);
-    }
-    return (int)launch_rows<float>(q, k, v, mask, o, B, H, Lq, Lk, sm_scale, causal, st);
+                                 float sm_scale, int causal, void* stream) {
+    return (int)launch_rows(static_cast<const float*>(q), static_cast<const float*>(k),
+                            static_cast<const float*>(v), static_cast<const int32_t*>(kv_mask),
+                            static_cast<float*>(o), B, H, Lq, Lk, sm_scale, causal,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -129,10 +129,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
 
 extern "C" {
 
-// flash_attention_d256.cu: the D = 256 kernel, for bf16 and f32 inputs
+// flash_attention_d256.cu: the f32 kernel at D = 256
 int pwt_flash_attention_d256_fwd(const void* q, const void* k, const void* v,
                                  const void* kv_mask, void* o, int B, int H, int Lq, int Lk,
-                                 float sm_scale, int causal, int is_bf16, void* stream);
+                                 float sm_scale, int causal, void* stream);
 
 // f32 q: [B, H, Lq, D], k / v: [B, H, Lk, D], all contiguous; kv_mask:
 // [B, Lk] int32 (1 = live key); o: like q. D in {16, 32, 64, 128, 256}.
@@ -152,7 +152,7 @@ int pwt_flash_attention_f32_fwd(const void* q, const void* k, const void* v, con
         case 128: return (int)launch_f32<128>(qf, kf, vf, mask, of, B, H, Lq, Lk, sm_scale, causal, st);
         case 256:
             return pwt_flash_attention_d256_fwd(q, k, v, kv_mask, o, B, H, Lq, Lk, sm_scale,
-                                                causal, 0, stream);
+                                                causal, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

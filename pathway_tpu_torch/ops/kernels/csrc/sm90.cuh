@@ -64,6 +64,39 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// TMA: shared memory at `src` into the box at (c0, c1, c2) of a 3-D tensor
+// map (coordinates past the tensor's end are not written); commit closes a
+// group of such stores, and wait_read returns once every committed store of
+// this thread has read its shared memory
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+        ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// orders this thread's writes to shared memory before later TMA reads of it
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// the byte offset `off` of a tile with ROW_BYTES-byte rows (128, 64 or 32),
+// as CU_TENSOR_MAP_SWIZZLE_{128,64,32}B places it, from a base aligned to
+// the swizzle's repeat (1024, 512 or 256 bytes)
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+    return off ^ (((off >> 7) & (ROW_BYTES / 16 - 1)) << 4);
+}
+
 // wgmma shared-memory descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the swizzle, which is the tile's row width in
 // bytes: 128, 64 or 32 (layout types 1, 2, 3), as
@@ -88,12 +121,48 @@ __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
-// pins the registers of an accumulator at this point of the program, so
-// the compiler moves no read or write of them across a wgmma or its wait
+// returns once at most N of this warpgroup's newest wgmma groups are in
+// flight (every older group has completed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// pins the registers of an accumulator (or of a wgmma's A operand) at this
+// point of the program, so the compiler moves no read or write of them
+// across a wgmma or its wait, and reuses none of them while one is in flight
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// named barriers (id 0 is __syncthreads'): wait until `threads` threads
+// have arrived at `id`, or arrive there without waiting
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// sets this warpgroup's registers a thread (a multiple of 8 in 24..256):
+// a producer gives registers back to the block's pool, consumers take them
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(REGS));
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -2,16 +2,25 @@
 
 Counterpart of pathway_tpu/ops/kernels/flash_attention.py. The kernel
 (csrc/flash_attention.cu) runs online-softmax attention with f32 softmax
-state and never writes the [L, L] scores; bf16 inputs go through the
-tensor cores (wgmma, with k and v brought in by TMA), f32 inputs through
-a simple CUDA-core kernel. The kernel has instances at head dims 16, 32,
-64 (the encoders), 128 (the decoder's prefill) and 256 (heads above 128,
-one warp per query row on the CUDA cores, csrc/flash_attention_d256.cu);
-the wrapper pads any other head dim up to 256 with zero columns, which add
-nothing to q k^T or to P v, and slices the output back.
-`reference_attention` is the
-plain version, the same function as the JAX package's
-`_reference_attention`; the wrapper takes it only for tensors on the CPU.
+state and never writes the [L, L] scores. bf16 inputs go through the
+tensor cores (wgmma, with q, k and v brought in by TMA) in one instance
+per head dim, each scheduled for what bounds it on an H100:
+
+- 16, 32, 64 (the encoders): the exp unit; each warpgroup runs S, its
+  softmax and P v in turn, and two blocks share an SM;
+- 128 (the decoder's prefill) and 256 (heads above 128): the tensor
+  cores and, at 128, memory as well; a warpgroup starts the next tile's
+  S before this tile's softmax, the two warpgroups of a block take turns
+  at the tensor cores (ping-pong), the producer warpgroup hands its
+  registers to them, and the output leaves by TMA.
+
+f32 inputs take simple CUDA-core kernels (one thread per query row, one
+warp per row at 256, csrc/flash_attention_d256.cu). The wrapper pads any
+other head dim up to the next instance (256 at most) with zero columns,
+which add nothing to q k^T or to P v, and slices the output back.
+`reference_attention` is the plain version, the same function as the JAX
+package's `_reference_attention`; the wrapper takes it only for tensors
+on the CPU. A CUDA tensor launches the kernel or raises.
 
 Rows whose keys are all masked are not zero: the additive -1e30 leaves
 every score near -1e30, so such a row averages v. The kernel is finite

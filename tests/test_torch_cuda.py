@@ -18,8 +18,8 @@ order than cuBLAS; unnormalised l2sq scores reach |s| ~ 300);
 flash atol 1e-4 in f32 and 2e-2 in bf16 (about one bf16 ulp at |o| in
 [2, 4)), on rows with at least one live key; fully masked rows only need
 to be finite. Encoder: f32 atol 1e-4, bf16 per-row cosine >= 0.999.
-Decoder (head dim 128): f32 logits atol 1e-4 and the same greedy tokens,
-bf16 per-position logit cosine >= 0.999.
+Decoder (head dims 128 and 256): f32 logits atol 1e-4 and the same greedy
+tokens, bf16 per-position logit cosine >= 0.999.
 """
 
 import numpy as np
@@ -190,11 +190,23 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (2, 3, 77, 77, 48, torch.float32, False),
         (2, 4, 300, 300, 80, torch.bfloat16, False),
         (2, 2, 130, 301, 80, torch.float32, True),
-        # head dim 256 (one warp per query row) and 160 / 200 padded to it
+        # the ping-pong instances at 128: rows only in the first warpgroup
+        (1, 2, 40, 130, 128, torch.bfloat16, True),
+        (2, 2, 65, 65, 128, torch.bfloat16, True),  # one row in the second
+        # head dim 256: bf16 on the tensor cores (four 64-column parts, a
+        # two-stage ring), f32 one warp per query row; 160 / 200 padded
         (2, 4, 300, 300, 256, torch.bfloat16, True),
         (2, 4, 300, 300, 256, torch.bfloat16, False),
         (2, 2, 1, 77, 256, torch.bfloat16, False),  # Lq = 1
+        (2, 2, 1, 1000, 256, torch.bfloat16, True),  # one row, one causal key
+        (2, 2, 1000, 1000, 256, torch.bfloat16, True),
+        (2, 2, 1000, 1000, 256, torch.bfloat16, False),
         (2, 3, 130, 301, 256, torch.bfloat16, True),  # Lq != Lk
+        (2, 3, 130, 301, 256, torch.bfloat16, False),
+        (2, 3, 77, 77, 256, torch.bfloat16, True),  # a single partial tile
+        (2, 2, 64, 64, 256, torch.bfloat16, True),  # no row in the second warpgroup
+        (1, 4, 2048, 2048, 256, torch.bfloat16, True),  # the ring wraps 16 times
+        (1, 2, 128, 4096, 256, torch.bfloat16, False),  # and 32 times
         (2, 4, 300, 300, 256, torch.float32, True),
         (2, 2, 130, 301, 256, torch.float32, False),
         (2, 2, 1, 77, 256, torch.float32, True),
@@ -218,6 +230,32 @@ def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
     live = mask.sum(dim=1) > 0
     err = (out.float()[live] - ref.float()[live]).abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+
+
+@pytest.mark.parametrize(
+    "b, h, l, d",
+    [(8, 32, 1000, 128), (8, 4, 1000, 256)],  # the decoder prefill's heads; heads of 256
+)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_ragged_rows_down_to_one_live_key(card, b, h, l, d, causal):
+    """Batch rows of 1, 2, 63, 64, 65, 127, 999 and all live keys: a
+    tile's mask addends, a partial last tile and rows whose only live key
+    is the first, with and without the causal mask. Rows of one or two
+    live keys output v itself, up to |o| ~ 5, where one bf16 ulp is 2^-5,
+    so the bound is 2e-2 of max(1, |o|): the table's 2e-2 below |o| = 1,
+    and about one ulp above."""
+    g = torch.Generator(device=card).manual_seed(d + int(causal))
+    q, k, v = (torch.randn((b, h, l, d), device=card, generator=g).bfloat16() for _ in range(3))
+    lens = torch.tensor([1, 2, 63, 64, 65, 127, l - 1, l], device=card)[:b]
+    mask = (torch.arange(l, device=card)[None, :] < lens[:, None]).to(torch.int32)
+    before = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    ref = reference_attention(q, k, v, mask, d ** -0.5, causal).float()
+    err = ((out.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    assert err <= 2e-2, err
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):
@@ -404,8 +442,19 @@ def test_dispatch_batch_enqueues_without_waiting_for_the_card(card, pack):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decoder_on_card_matches_cpu_and_prefills_through_flash(card, dtype):
+    _decoder_on_card_matches_cpu(card, dtype, hidden=256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_at_head_dim_256_on_card_prefills_through_flash(card, dtype):
+    """Heads of 256 (hidden 512, 2 q heads): the prefill reaches the
+    D = 256 instance, flash_fwd_bf16<256> in bf16."""
+    _decoder_on_card_matches_cpu(card, dtype, hidden=512)
+
+
+def _decoder_on_card_matches_cpu(card, dtype, hidden):
     config = dec.DecoderConfig(
-        vocab_size=512, hidden=256, layers=2, q_heads=2, kv_heads=1,
+        vocab_size=512, hidden=hidden, layers=2, q_heads=2, kv_heads=1,
         mlp_dim=512, max_len=512, dtype=dtype,
     )
     cpu_params = dec.init_decoder_params(torch.Generator().manual_seed(0), config)

@@ -3,8 +3,9 @@
 Both packages get the same weights (the JAX tree carried over with
 `decoder_params_from_jax`) and the same inputs, made by numpy from a
 seed. On the CPU the port's flash wrapper runs its plain version and the
-JAX side runs its Pallas kernel in interpret mode. Two configs: `TINY`
-(head dim 16) and a small config at the decoder's head dim 128.
+JAX side runs its Pallas kernel in interpret mode. Three configs: `TINY`
+(head dim 16), a small config at the decoder's head dim 128 and one at
+head dim 256 (hidden 512, 2 q heads, 1 kv head).
 
 Tolerances: f32 logits within 1e-4 absolute (logits of order 1, sums of
 at most 512 terms taken in another order by XLA and by torch); greedy
@@ -38,9 +39,13 @@ HD128 = dict(
     vocab_size=512, hidden=256, layers=2, q_heads=2, kv_heads=1,
     mlp_dim=512, max_len=64, dtype="float32",
 )
+# heads of 256, the card's largest flash instance (no model the JAX package
+# configures has heads above 128; this one holds the port there)
+HD256 = dict(HD128, hidden=512)
 CONFIGS = {
     "tiny": (jdec.TINY, dec.TINY),
     "hd128": (jdec.DecoderConfig(**HD128), dec.DecoderConfig(**HD128)),
+    "hd256": (jdec.DecoderConfig(**HD256), dec.DecoderConfig(**HD256)),
 }
 
 
@@ -67,6 +72,7 @@ def test_config_geometry_matches_jax():
     assert dec.TINY == dec.DecoderConfig(**vars(jdec.TINY))
     assert dec.MISTRAL_7B_DECODER.head_dim == 128
     assert CONFIGS["hd128"][1].head_dim == 128
+    assert CONFIGS["hd256"][1].head_dim == 256
     for name in ("MISTRAL_7B", "TINY_DECODER"):
         assert vars(getattr(tr, name)) == vars(getattr(jtr, name)), name
 

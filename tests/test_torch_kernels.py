@@ -107,6 +107,34 @@ def test_flash_plain_matches_jax_kernel(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "d, lq, lk", [(32, 130, 301), (128, 130, 301), (256, 130, 301), (256, 1, 77)]
+)
+def test_flash_plain_matches_jax_kernel_at_each_instance(d, lq, lk, causal):
+    """At the head dims of the card's instances (32, 128 and 256) and the
+    card tests' ragged shapes (Lq != Lk, neither a multiple of a tile; Lq
+    = 1 over a single partial tile of 77 keys): batch rows with every key
+    live, with one live key and with half the keys live."""
+    rng = np.random.default_rng(d + lq)
+    q, k, v = (rng.normal(size=(3, 2, n, d)).astype(np.float32) for n in (lq, lk, lk))
+    mask = np.ones((3, lk), dtype=np.int32)
+    mask[1, 1:] = 0
+    mask[2, lk // 2:] = 0
+    ref = np.asarray(
+        jax_flash(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+            causal=causal, block_q=64, block_k=64,
+        )
+    )
+    out = port.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(mask), causal=causal,
+    ).numpy()
+    assert out.shape == q.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_flash_plain_matches_jax_reference_all_rows(causal):
     """The plain version is the JAX `_reference_attention`, fully masked
     rows included (they average v over the keys)."""
