@@ -87,7 +87,31 @@ width with random weights from a seed:
      ids and scores against numpy's exact answer (knn_topk's l2sq and cos
      modes through _KnnIndexImpl), then knn_lsh_classifier_train's
      labels against a numpy majority vote;
- 11. the card's line, one `kernels` JSON line, then the `ok` JSON line.
+ 13. operability on the card, run after 12 and before 8: (a) phase 9a's
+     configuration (16,384 docs, the fused index, full MiniLM-L6 width) under
+     pw.run(analysis="warn", with_http_server=True): PWT601 and no ERROR
+     finding, the capacity plan judged against the card's total memory, its
+     index and encoder bytes against memtrack's live entries (as many as
+     predicted; the earlier phases' engines and model caches are dropped
+     first, and none of their registrations may be left), and
+     torch.cuda.memory_allocated()'s growth beside memtrack's sum (the gap
+     is the encoder's bf16 compute copy); (b) while 9b's UDF-embedder
+     DocumentStore serves queries (knn_topk), `python -m
+     pathway_tpu_torch.cli profile --url` captures 2 s through the job's
+     /profile twice (the first sets CUPTI up before its window): each
+     window must hold answered queries and each Chrome trace
+     knn_block_topk (its top 5 kernels
+     printed), `status --json` must carry the second capture under
+     utilization.profiler.last and a memory key, and `top --once` prints a
+     frame; (c) `cli analyze --json` on a script whose DocumentStore
+     reserves 2^26 rows at d = 384 (~103 GB): PWT603 against the card's
+     capacity with nothing allocated, and `cli profile --device`, whose
+     trace must hold the calibration matmul's GEMM; (d) flash gradients of
+     q, k and v through the kernel against the CPU path's at [2, 4, 256, 64]
+     f32 and bf16, causal and not, ragged mask (GRAD_TOL), and one launch a
+     call under no_grad;
+ 11. the card's line, one `kernels` JSON line (launches_by_path per phase,
+     "operability" included), then the `ok` JSON line.
 
 Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
 (wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
@@ -98,7 +122,10 @@ head dims 24, 48 and 80 (zero-padded to the next kernel instance) against
 the plain version; and the head-dim 256 instances (head dims 160 and 200
 padded to them) against the plain version, timed at [1, 16, 2048, 256]
 causal beside scaled_dot_product_attention. At D = 128 and 256 it prints
-the products' share of the tensor cores' peak beside the times.
+the products' share of the tensor cores' peak beside the times. It times
+the f32 instances too: the one-thread-a-row kernel at [64, 12, 512, 32]
+and flash_fwd_rows<float,256> at [1, 16, 2048, 256] causal, beside the
+plain version and scaled_dot_product_attention in f32.
 
 Every check raises on failure, so a failed phase exits non-zero and prints
 no `ok` line. Imports torch, numpy and pathway_tpu_torch only.
@@ -108,6 +135,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -547,6 +575,66 @@ def check_flash_d256(flash_attention, reference_attention) -> dict:
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
         "library_ms": library_ms,
     }
+
+
+def time_flash_f32(flash_attention, reference_attention) -> list:
+    """The f32 instances' times, CUDA-event medians beside the plain
+    version and scaled_dot_product_attention in f32 (TF32 is off in this
+    script): the one-thread-a-row kernel of flash_attention_f32.cu at the
+    encoder's [64, 12, 512, 32] with phase 3's ragged mask shape, and
+    flash_fwd_rows<float,256> at [1, 16, 2048, 256] causal. The bound is
+    the larger of the bytes at 3.35 TB/s and the products at the CUDA
+    cores' f32 peak (67 TFLOP/s), the f32 kernels' own units. Each against
+    the plain version first (f32 1e-4 on rows with a live key). Its own
+    generator."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for b, h, l, d, causal, kernel in (
+        (64, 12, 512, 32, False, "flash_fwd_f32<32> (one thread a query row)"),
+        (1, 16, 2048, 256, True, "flash_fwd_rows<float,256>"),
+    ):
+        q, k, v = (torch.randn((b, h, l, d), device="cuda", generator=gen) for _ in range(3))
+        if causal:
+            mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
+        else:
+            lens = torch.randint(1, l + 1, (b,), device="cuda", generator=gen)
+            mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        scale = d ** -0.5
+        e = live_rows_err(flash_attention(q, k, v, mask, causal=causal),
+                          reference_attention(q, k, v, mask, scale, causal), mask)
+        check(e <= 1e-4, f"flash_attention f32 [{b},{h},{l},{d}] causal={causal}: error {e}")
+        ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=causal))
+        plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, causal))
+        if causal:
+            library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            pairs = b * h * l * (l + 1) / 2
+        else:
+            keep = mask.bool()[:, None, None, :]
+            library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+            pairs = b * h * l * l
+        nbytes = 4 * q.numel() * 4 + mask.numel() * 4
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / F32_FLOPS * 1e3
+        log(f"  flash_attention [{b},{h},{l},{d}] f32 causal={causal} ({kernel}): max |err| "
+            f"{e:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"f32 {library_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, "
+            f"f32 products at 67 TFLOP/s {op_ms:.4f})")
+        rows.append({
+            "instance": kernel,
+            "shape": [b, h, l, d],
+            "dtype": "float32",
+            "causal": causal,
+            "max_abs_err": e,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": library_ms,
+            # every model of the smoke runs bf16: no path launches an f32 instance
+            "launches": 0,
+        })
+    return rows
 
 
 # -- phases 4 and 5: the main path -------------------------------------------
@@ -1040,15 +1128,11 @@ def _get(q: queue.Queue, runner: _PhaseThread, timeout: float = 300.0):
             check(time.perf_counter() < deadline, f"no answer within {timeout} s")
 
 
-def _retrieval_pipeline(docs_path: str, n_docs: int, query_q, resp_q, count_q, device) -> None:
-    """bench.py's run_pipeline through pathway_tpu_torch: jsonlines files
-    (streaming, one commit per file) -> DocumentStore over
-    BruteForceKnnFactory(SentenceTransformerEmbedder) -> retrieve_query on
-    queries from a python connector subject."""
-    import pathway_tpu_torch as pw
-    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+def _serve_store(pw, store, query_q, resp_q, count_q, run_kwargs=None) -> None:
+    """retrieve_query on queries from a python connector subject fed by
+    `query_q` (None closes it), answers into `resp_q` and the ingested doc
+    count into `count_q`, each with its time; then pw.run."""
     from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
-    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 
     class QuerySubject(pw.io.python.ConnectorSubject):
         def run(self) -> None:
@@ -1059,19 +1143,6 @@ def _retrieval_pipeline(docs_path: str, n_docs: int, query_q, resp_q, count_q, d
                 self.next(**item)
                 self.commit()
 
-    pw.G.clear()
-    docs = pw.io.jsonlines.read(
-        docs_path,
-        schema=pw.schema_from_types(data=str),
-        mode="streaming",
-        batch_per_file=True,
-        refresh_interval=3600.0,  # every file exists up front
-    )
-    embedder = SentenceTransformerEmbedder(max_len=64, device=device)
-    factory = BruteForceKnnFactory(
-        dimensions=embedder.get_embedding_dimension(), embedder=embedder, reserved_space=n_docs
-    )
-    store = DocumentStore(docs, retriever_factory=factory)
     queries = pw.io.python.read(QuerySubject(), schema=DocumentStore.RetrieveQuerySchema)
     clock = time.perf_counter  # the callbacks' `time` argument shadows the module
 
@@ -1087,7 +1158,35 @@ def _retrieval_pipeline(docs_path: str, n_docs: int, query_q, resp_q, count_q, d
             count_q.put((clock(), row["c"]))
 
     pw.io.subscribe(store.chunked_docs.groupby().reduce(c=pw.reducers.count()), on_change=on_count)
-    pw.run(autocommit_duration_ms=25, monitoring_level=pw.MonitoringLevel.NONE)
+    pw.run(autocommit_duration_ms=25, monitoring_level=pw.MonitoringLevel.NONE,
+           **(run_kwargs or {}))
+
+
+def _retrieval_pipeline(docs_path: str, n_docs: int, query_q, resp_q, count_q, device,
+                        run_kwargs=None) -> None:
+    """bench.py's run_pipeline through pathway_tpu_torch: jsonlines files
+    (streaming, one commit per file) -> DocumentStore over
+    BruteForceKnnFactory(SentenceTransformerEmbedder) -> retrieve_query on
+    queries from a python connector subject."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    pw.G.clear()
+    docs = pw.io.jsonlines.read(
+        docs_path,
+        schema=pw.schema_from_types(data=str),
+        mode="streaming",
+        batch_per_file=True,
+        refresh_interval=3600.0,  # every file exists up front
+    )
+    embedder = SentenceTransformerEmbedder(max_len=64, device=device)
+    factory = BruteForceKnnFactory(
+        dimensions=embedder.get_embedding_dimension(), embedder=embedder, reserved_space=n_docs
+    )
+    store = DocumentStore(docs, retriever_factory=factory)
+    _serve_store(pw, store, query_q, resp_q, count_q, run_kwargs)
 
 
 def _ask(query_q, resp_q, runner, text: str):
@@ -1154,6 +1253,18 @@ def _index_node(engine):
     return node
 
 
+def _write_docs(docs, tmp: str) -> str:
+    """bench.py's input: {"data": doc} json lines in N_CHUNKS files."""
+    docs_path = os.path.join(tmp, "docs")
+    os.makedirs(docs_path)
+    per_file = len(docs) // N_CHUNKS
+    for f in range(N_CHUNKS):
+        with open(os.path.join(docs_path, f"docs_{f:03d}.jsonl"), "w") as fh:
+            for d in docs[f * per_file : (f + 1) * per_file]:
+                fh.write(json.dumps({"data": d}) + "\n")
+    return docs_path
+
+
 def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dict:
     """9a: bench.py's framework path through pathway_tpu_torch, every
     default on: a warm-up run, bench.py's collect-and-freeze, then the
@@ -1168,13 +1279,7 @@ def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dic
 
     docs = make_docs(n_docs, random.Random(7))
     with tempfile.TemporaryDirectory() as tmp:
-        docs_path = os.path.join(tmp, "docs")
-        os.makedirs(docs_path)
-        per_file = n_docs // N_CHUNKS
-        for f in range(N_CHUNKS):
-            with open(os.path.join(docs_path, f"docs_{f:03d}.jsonl"), "w") as fh:
-                for d in docs[f * per_file : (f + 1) * per_file]:
-                    fh.write(json.dumps({"data": d}) + "\n")
+        docs_path = _write_docs(docs, tmp)
         warm = _drive_retrieval(docs, docs_path, device)
         del warm
         pw_runner._last_engine = None
@@ -1533,13 +1638,7 @@ def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None 
     concurrent = make_prompts(RAG_QUERIES, random.Random(23), 8, 16)
     generator = ChatModel("mistral-7b", max_len=1024, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
-        docs_path = os.path.join(tmp, "docs")
-        os.makedirs(docs_path)
-        per_file = n_docs // N_CHUNKS
-        for f in range(N_CHUNKS):
-            with open(os.path.join(docs_path, f"docs_{f:03d}.jsonl"), "w") as fh:
-                for d in docs[f * per_file : (f + 1) * per_file]:
-                    fh.write(json.dumps({"data": d}) + "\n")
+        docs_path = _write_docs(docs, tmp)
         served = _serve_rag(docs_path, n_docs, generator, queries, concurrent, docs[-1],
                             autocommit_ms)
     served_s = time.perf_counter() - t_phase
@@ -1922,6 +2021,481 @@ def run_stdlib_ml(card: str, n_rows: int = N_ML_ROWS, device=None) -> dict:
     return out
 
 
+# -- phase 13: operability on the card -------------------------------------------
+
+# 13c's index: 2^26 rows of 384 f32 columns and a valid flag, 2^26 x 1,537 B
+# (~103 GB), more than an 80 GB card holds
+N_OVERSIZED_ROWS = 1 << 26
+MONITORING_URL = "http://127.0.0.1:20000"  # pw.run(with_http_server=True), worker 0
+# gradients of q, k and v through flash (the kernel's forward, the plain
+# version's recomputed backward) against the CPU path's, as a share of
+# max(1, the largest |gradient|): f32 1e-4 (f32 rounding of two sums in
+# another order); bf16 3e-2 (the backward's products round to bf16, 2^-8
+# relative, on both sides, summed over up to 256 keys in another order)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _collect_earlier_phases() -> dict:
+    """Drop what earlier phases left alive and collect: the last engine,
+    the parse graph and the model caches of SentenceEncoder / ChatModel /
+    CrossEncoderModel.cached. A finished run holds nothing else: its
+    index closes its DevicePipeline at the run's end, and its streaming
+    readers let go of the run and return. Returns memtrack's live
+    (entries, bytes) of the index and the encoder that survive it."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.models import cross_encoder, decoder_lm, minilm
+
+    pw_runner._last_engine = None
+    pw.G.clear()
+    for module in (minilm, decoder_lm, cross_encoder):
+        module._model_cache.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return {c: _live(c) for c in ("knn_index", "encoder_params")}
+
+
+def _tensors(tree):
+    """The tensors of a nested dict / list tree."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _live(component: str) -> tuple:
+    """memtrack's live (entries, bytes) of one component."""
+    from pathway_tpu_torch.internals import memtrack
+
+    entries = memtrack.tracker().entries(component)
+    return len(entries), sum(e["nbytes"] for e in entries)
+
+
+def _cli(args, timeout: float = 180.0) -> tuple:
+    """`python -m pathway_tpu_torch.cli ARGS` from this checkout: (exit
+    code, stdout, stderr)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-m", "pathway_tpu_torch.cli", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout,
+    )
+    return res.returncode, res.stdout, res.stderr
+
+
+def _trace_kernels(path: str) -> list:
+    """The CUDA kernel events of a Chrome trace written by torch.profiler.
+    Fails if there are none, naming the trace's event categories."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    cats = sorted({str(e.get("cat")) for e in events})
+    check(bool(kernels), f"{path}: no CUDA kernel event among {len(events)} ({cats})")
+    return kernels
+
+
+def _top_kernels(kernels: list, n: int = 5) -> list:
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return [{"kernel": name[:90], "ms": us / 1e3} for name, us in top]
+
+
+def _stop_pipeline(query_q, runner) -> None:
+    from pathway_tpu_torch.internals import runner as pw_runner
+
+    query_q.put(None)  # closes the query subject
+    pw_runner.last_engine().terminate_flag.set()  # the docs source streams on
+    runner.join(timeout=60)
+    check(not runner.is_alive() and runner.error is None, f"pipeline end: {runner.error!r}")
+
+
+def run_capacity_parity(card: str, n_docs: int = N_DOCS, device=None) -> dict:
+    """13a: phase 9a's configuration (fs jsonlines -> DocumentStore over
+    BruteForceKnnFactory(SentenceTransformerEmbedder(max_len=64)) at full
+    MiniLM-L6 width, reserved_space = the doc count) under
+    pw.run(analysis="warn", with_http_server=True): the analyzer's capacity
+    plan against the card's total memory and against memtrack's live bytes
+    of the index and the encoder, with as many live entries as predicted
+    (else PWT699's comparison would skip), and the allocator's growth over
+    the build beside memtrack's sum (the gap is the encoder's bf16 compute
+    copy, which memtrack does not count)."""
+    from pathway_tpu_torch.analysis.capacity import CAPACITY_PARITY_TOLERANCE
+    from pathway_tpu_torch.internals import memtrack
+    from pathway_tpu_torch.internals import runner as pw_runner
+
+    check(memtrack.ENABLED, "memtrack is disabled (PATHWAY_MEMTRACK=0)")
+    on_card = device is None or torch.device(device).type == "cuda"
+    left = _collect_earlier_phases()
+    # the counts below must match the plan's, so nothing of the earlier
+    # phases' finished runs may still be registered
+    check(all(n == 0 for n, _ in left.values()),
+          f"finished runs of earlier phases still hold device memory: knn_index "
+          f"{left['knn_index'][0]} ({left['knn_index'][1]:.0f} B), encoder_params "
+          f"{left['encoder_params'][0]} ({left['encoder_params'][1]:.0f} B)")
+    log("  earlier phases' runs, their engines and model caches dropped: no knn_index or "
+        "encoder_params registration left  ok")
+    docs = make_docs(n_docs, random.Random(7))
+    t0 = time.perf_counter()
+    # cuBLAS keeps a workspace per (handle, stream) in the caching
+    # allocator; the earlier phases' are dropped so that the growth below
+    # holds only this run's, and clearing them again after shows their share
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if on_card and clear_workspaces is not None:
+        clear_workspaces()
+    allocated0 = torch.cuda.memory_allocated() if on_card else 0
+    query_q: queue.Queue = queue.Queue()
+    resp_q: queue.Queue = queue.Queue()
+    count_q: queue.Queue = queue.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = _PhaseThread(
+            _retrieval_pipeline,
+            (_write_docs(docs, tmp), n_docs, query_q, resp_q, count_q, device,
+             {"analysis": "warn", "with_http_server": True}),
+        )
+        runner.start()
+        while _get(count_q, runner)[1] < n_docs:
+            pass
+        _, result = _ask(query_q, resp_q, runner, docs[-1])
+        check(bool(result.value) and result.value[0]["text"] == docs[-1],
+              "the probe query did not find the last doc at rank 1")
+        grown = workspaces = None
+        if on_card:
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated() - allocated0
+            if clear_workspaces is not None:
+                clear_workspaces()
+                workspaces = allocated0 + grown - torch.cuda.memory_allocated()
+        live = {c: _live(c) for c in ("knn_index", "encoder_params")}
+        engine = pw_runner.last_engine()
+        analysis = engine.analysis
+        lm = _index_node(engine).index.fused.encoder.lm
+        compute_copy = sum(
+            t.numel() * t.element_size()
+            for t in _tensors(lm.compute_params()["layers"]) if t.dtype != torch.float32
+        )
+        _stop_pipeline(query_q, runner)
+    del engine, lm
+    pw_runner._last_engine = None
+    gc.collect()
+    check(analysis is not None, "pw.run(analysis='warn') attached no analysis to the engine")
+    findings = [(f["code"], f["severity"]) for f in analysis["findings"]]
+    check("PWT601" in {c for c, _ in findings}, f"no PWT601 capacity plan: {findings}")
+    check(not [c for c, s in findings if s == "error"], f"ERROR findings: {findings}")
+    cap = analysis["capacity"]
+    if on_card:
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(cap["hbm_capacity_bytes"] == total,
+              f"capacity {cap['hbm_capacity_bytes']} is not the card's {total} B")
+    (row,) = cap["indexes"]
+    want = {"knn_index": (1, row["index_bytes"]), "encoder_params": (1, row["param_bytes"])}
+    for component, (n_pred, pred) in want.items():
+        n_live, got = live[component]
+        check(n_live == n_pred, f"{component}: {n_live} live entries for {n_pred} predicted, so "
+                                "PWT699's comparison would skip")
+        drift = abs(pred - got) / got
+        check(drift <= CAPACITY_PARITY_TOLERANCE,
+              f"{component}: predicted {pred} B, live {got} B ({100 * drift:.2f} % drift)")
+    tracked = live["knn_index"][1] + live["encoder_params"][1]
+    seconds = time.perf_counter() - t0
+    log(f"  pw.run(analysis='warn', with_http_server=True) over 9a's configuration ({n_docs} docs, "
+        f"MiniLM-L6, max_len 64, reserved_space {n_docs}): findings {sorted(set(findings))}; "
+        f"hbm_capacity_bytes {cap['hbm_capacity_bytes']} (the card's total memory)")
+    log(f"  capacity plan against memtrack's live entries (1 index, 1 encoder, as predicted): "
+        f"knn_index predicted {row['index_bytes']} B ({row['predicted_rows']} rows), live "
+        f"{live['knn_index'][1]} B; encoder_params predicted {row['param_bytes']} B, live "
+        f"{live['encoder_params'][1]} B  ok")
+    gap = None if grown is None else grown - tracked
+    rest = None if gap is None or workspaces is None else gap - compute_copy - workspaces
+    log(f"  torch.cuda.memory_allocated() grew {grown} B over the build and ingest, memtrack "
+        f"holds {tracked:.0f} B: {gap} B more on the card, not in memtrack: the encoder's bf16 "
+        f"compute copy of its matmul weights {compute_copy} B, cuBLAS workspaces {workspaces} B, "
+        f"the rest {rest} B; phase 13a {seconds:.1f} s [{card}]")
+    return {"index_bytes": row["index_bytes"], "param_bytes": row["param_bytes"],
+            "live": live, "allocated_growth": grown, "compute_copy": compute_copy,
+            "cublas_workspaces": workspaces}
+
+
+def _udf_serving_pipeline(vecs, query_q, resp_q, count_q, device) -> None:
+    """9b's DocumentStore over a pw.udf embedder of seeded unit vectors
+    (the vector impl: knn_topk), serving queries on a python connector
+    subject under pw.run(with_http_server=True)."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+    @pw.udf(max_batch_size=4096, deterministic=True, return_type=np.ndarray)
+    def embed(batch: list) -> list:
+        return [vecs[int(t.rsplit(" ", 1)[1])] for t in batch]
+
+    pw.G.clear()
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=str), [(f"udf doc {i}",) for i in range(len(vecs))]
+    )
+    factory = BruteForceKnnFactory(
+        dimensions=vecs.shape[1], embedder=embed, reserved_space=len(vecs), device=device
+    )
+    store = DocumentStore(docs, retriever_factory=factory)
+    _serve_store(pw, store, query_q, resp_q, count_q, {"with_http_server": True})
+
+
+def run_profile_while_serving(card: str, n_docs: int = N_UDF_DOCS, device=None,
+                              seconds: float = 2.0) -> dict:
+    """13b: while 9b's UDF-embedder DocumentStore serves queries (knn_topk
+    on the card), `pathway-tpu-torch profile --url` asks the job's
+    /profile twice for a `seconds` capture with queries running: the
+    first sets CUPTI up before its window, the second starts at once, and
+    each window must hold answered queries and each Chrome trace
+    knn_block_topk. Then `status --json` must carry the second capture
+    under utilization.profiler.last (the repaired /status) and a memory
+    key, and `top --once` prints one frame."""
+    from pathway_tpu_torch.internals import profiler, utilization
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    # the window scoped to this run, as 9a and 10 scope theirs: 13a's
+    # ingest does not pace these queries
+    utilization.reset_window()
+    vecs = np.random.default_rng(0).standard_normal((n_docs, DIM)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    query_q: queue.Queue = queue.Queue()
+    resp_q: queue.Queue = queue.Queue()
+    count_q: queue.Queue = queue.Queue()
+    runner = _PhaseThread(_udf_serving_pipeline, (vecs, query_q, resp_q, count_q, device))
+    runner.start()
+    while _get(count_q, runner)[1] < n_docs:
+        pass
+    _, result = _ask(query_q, resp_q, runner, "udf doc 17")
+    check(bool(result.value) and result.value[0]["text"] == "udf doc 17",
+          "the probe query did not find its own doc at rank 1")
+    stop = threading.Event()
+    answered: list = []  # wall-clock times, as the capture's own
+
+    def feed() -> None:
+        i = 0
+        while not stop.is_set():
+            text = f"udf doc {(i * 7919) % n_docs}"
+            _, res = _ask(query_q, resp_q, runner, text)
+            check(res.value[0]["text"] == text, f"{text!r} not at rank 1 under the profiler")
+            answered.append(time.time())
+            i += 1
+
+    feeder = _PhaseThread(feed, ())
+    feeder.start()
+    deadline = time.perf_counter() + 120
+    while len(answered) < 32:
+        check(feeder.error is None and feeder.is_alive(), f"query feeder: {feeder.error!r}")
+        check(time.perf_counter() < deadline, "no 32 answers within 120 s")
+        time.sleep(0.01)
+    captures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the job's first capture sets CUPTI up before its window opens;
+        # the second starts at once. Each must hold the job's searches
+        for i in range(2):
+            t_call = time.perf_counter()
+            rc, out, err = _cli(["profile", "--url", MONITORING_URL, "--seconds", str(seconds),
+                                 "--out", os.path.join(tmp, f"capture{i}")])
+            call_s = time.perf_counter() - t_call
+            check(feeder.error is None and feeder.is_alive(), f"query feeder: {feeder.error!r}")
+            check(rc == 0, f"cli profile --url (capture {i + 1}) exited {rc}: {err.strip()}")
+            capture = profiler.last_capture()
+            check(capture is not None and "error" not in capture, f"capture {i + 1}: {capture}")
+            check(capture["trace_file"] in out, f"cli profile printed {out!r}")
+            window = (capture["started_at"], capture["started_at"] + capture["seconds"])
+            in_window = sum(window[0] <= t <= window[1] for t in answered)
+            size = os.path.getsize(capture["trace_file"])
+            kernels = knn = []
+            if on_card:
+                kernels = _trace_kernels(capture["trace_file"])
+                knn = [e for e in kernels if "knn_block_topk" in e["name"]]
+            log(f"  capture {i + 1}: cli profile --url over /profile?seconds={seconds:g} while 9b's "
+                f"DocumentStore ({n_docs} docs, d = {DIM}) served: CUPTI set-up "
+                f"{capture.get('setup_seconds', 0.0):.3f} s before the window, the call "
+                f"{call_s:.1f} s; {in_window} queries answered in the window, trace {size} B with "
+                f"{len(kernels)} CUDA kernel events, {len(knn)} of them knn_block_topk "
+                f"({len(knn) / max(in_window, 1):.2f} a query); top kernels by device time: "
+                f"{json.dumps(_top_kernels(kernels))}")
+            check(in_window > 0, f"capture {i + 1}: no query was answered inside its window")
+            check(not on_card or bool(knn), f"capture {i + 1}: the /profile trace holds no "
+                                            "knn_block_topk kernel")
+            captures.append({"setup_seconds": capture.get("setup_seconds"), "trace_bytes": size,
+                             "kernel_events": len(kernels), "knn_events": len(knn),
+                             "queries_in_window": in_window,
+                             "top_kernels": _top_kernels(kernels)})
+        stop.set()
+        feeder.join(timeout=60)
+        check(not feeder.is_alive() and feeder.error is None, f"query feeder: {feeder.error!r}")
+        check((captures[0]["setup_seconds"] is not None) == on_card
+              and captures[1]["setup_seconds"] is None,
+              f"CUPTI set-up: {[c['setup_seconds'] for c in captures]}")
+        rc, out, err = _cli(["status", "--url", f"{MONITORING_URL}/status", "--json"])
+        check(rc == 0, f"cli status exited {rc}: {err.strip()}")
+        status = json.loads(out)
+        check(status["utilization"]["profiler"]["last"] == json.loads(json.dumps(capture)),
+              "/status's utilization.profiler.last is not the second capture")
+        check("memory" in status, "/status has no memory key")
+        rc, frame, err = _cli(["top", "--url", f"{MONITORING_URL}/status", "--once"])
+        check(rc == 0 and frame.startswith("pathway-tpu-torch top"), f"cli top: {rc} {err.strip()}")
+    _stop_pipeline(query_q, runner)
+    from pathway_tpu_torch.internals import runner as pw_runner
+
+    pw_runner._last_engine = None
+    gc.collect()
+    log(f"  {'both captures hold knn_block_topk  ok; ' if on_card else ''}cli status --json: "
+        "utilization.profiler.last is the second capture, memory key present  ok; cli top --once:")
+    for line in frame.rstrip().splitlines():
+        log(f"    {line}")
+    log(f"  phase 13b {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"captures": captures}
+
+
+_OVERSIZED_SCRIPT = """
+import numpy as np
+
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+
+@pw.udf(max_batch_size=4096, deterministic=True, return_type=np.ndarray)
+def embed(batch: list) -> list:
+    return [np.ones({dim}, dtype=np.float32) for _ in batch]
+
+
+docs = pw.io.jsonlines.read({docs!r}, schema=pw.schema_from_types(data=str), mode="streaming")
+factory = BruteForceKnnFactory(dimensions={dim}, embedder=embed, reserved_space={rows})
+store = DocumentStore(docs, retriever_factory=factory)
+queries = pw.debug.table_from_rows(DocumentStore.RetrieveQuerySchema, [("q", 6, None, None)])
+pw.io.subscribe(store.retrieve_query(queries), on_change=lambda *a, **k: None)
+pw.run()
+"""
+
+
+def run_cli_on_card(card: str, on_card: bool = True, seconds: float = 2.0) -> dict:
+    """13c: `pathway-tpu-torch analyze --json` on a script whose
+    DocumentStore reserves more index rows than the card holds (PWT603
+    against the card's own total memory), run in this process so that the
+    allocator can show it built nothing; then `profile --device`, whose
+    Chrome trace must hold the calibration matmul's bf16 GEMM kernel."""
+    from pathway_tpu_torch.cli import main as cli_main
+    from pathway_tpu_torch.internals import runner as pw_runner
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "oversized.py")
+        with open(script, "w") as f:
+            f.write(_OVERSIZED_SCRIPT.format(dim=DIM, rows=N_OVERSIZED_ROWS,
+                                             docs=os.path.join(tmp, "docs")))
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            allocated0 = torch.cuda.memory_allocated()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["analyze", script, "--json"])
+        check(rc == 0, f"cli analyze exited {rc}")
+        if on_card:
+            torch.cuda.synchronize()
+            check(torch.cuda.memory_allocated() == allocated0
+                  and torch.cuda.max_memory_allocated() == allocated0,
+                  "cli analyze allocated on the card")
+        payload = json.loads(buf.getvalue())
+        pwt603 = [f for f in payload["findings"] if f["code"] == "PWT603"]
+        check(len(pwt603) == 1 and pwt603[0]["severity"] == "error",
+              f"no PWT603 ERROR: {[f['code'] for f in payload['findings']]}")
+        (row,) = payload["capacity"]["indexes"]
+        check(row["index_bytes"] == N_OVERSIZED_ROWS * (4 * DIM + 1),
+              f"predicted {row['index_bytes']} B for {N_OVERSIZED_ROWS} rows at d = {DIM}")
+        capacity = payload["capacity"]["hbm_capacity_bytes"]
+        if on_card:
+            total = torch.cuda.get_device_properties(0).total_memory
+            check(capacity == total and pwt603[0]["details"]["hbm_capacity_bytes"] == total,
+                  f"PWT603 judged against {capacity} B, not the card's {total} B")
+        log(f"  cli analyze --json, a DocumentStore reserving {N_OVERSIZED_ROWS} rows at d = {DIM}: "
+            f"PWT603 ({pwt603[0]['message'][:120]}...); predicted {row['index_bytes']} B against "
+            f"the card's {capacity} B; nothing allocated on the card (memory_allocated and its "
+            f"peak unchanged)  ok")
+        pw_runner._last_engine = None
+        if not on_card:
+            return {"pwt603": pwt603[0]["details"]}
+        out_dir = os.path.join(tmp, "device")
+        rc, out, err = _cli(["profile", "--device", "--seconds", str(seconds), "--out", out_dir])
+        check(rc == 0, f"cli profile --device exited {rc}: {err.strip()}")
+        traces = [os.path.join(out_dir, f) for f in os.listdir(out_dir) if f.endswith(".json")]
+        check(len(traces) == 1, f"cli profile --device wrote {traces}")
+        kernels = _trace_kernels(traces[0])
+        gemms = [e["name"] for e in kernels
+                 if any(w in e["name"].lower() for w in ("gemm", "xmma", "nvjet", "cutlass"))]
+        check(bool(gemms), f"the --device trace holds no GEMM kernel: {_top_kernels(kernels)}")
+        bf16 = [n for n in gemms if "bf16" in n.lower()]
+        size = os.path.getsize(traces[0])
+    log(f"  cli profile --device --seconds {seconds:g}: trace {size} B, {len(kernels)} kernel "
+        f"events, {len(gemms)} GEMM kernels ({len(bf16)} named bf16), e.g. {gemms[0][:100]}; top "
+        f"kernels: {json.dumps(_top_kernels(kernels))}  ok; phase 13c "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"pwt603": pwt603[0]["details"], "gemm_kernels": len(gemms), "trace_bytes": size}
+
+
+def check_flash_gradients(flash_attention, reference_attention) -> dict:
+    """13d: the flash repair on the card. Gradients of q, k and v through
+    the kernel (the card's forward inside its autograd function, whose
+    backward recomputes the plain version) against the CPU path's at
+    [2, 4, 256, 64], f32 and bf16, causal and not, with a ragged mask: the
+    forward at phase 3's tolerances on rows with a live key, the gradients
+    at GRAD_TOL. Under no_grad the wrapper launches exactly what it did
+    (one kernel a call, no autograd record); with grad the backward adds
+    no launch. Its own generator."""
+    gen = torch.Generator().manual_seed(21)
+    b, h, l, d = 2, 4, 256, 64
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q, k, v, g = (torch.randn((b, h, l, d), generator=gen) for _ in range(4))
+            lens = torch.randint(1, l + 1, (b,), generator=gen)
+            mask = (torch.arange(l)[None, :] < lens[:, None]).to(torch.int32)
+            leaves = {}
+            for where in ("cuda", "cpu"):
+                ts = [t.to(where, dtype).requires_grad_() for t in (q, k, v)]
+                before = flash_attention.launches
+                out = flash_attention(*ts, mask.to(where), causal=causal)
+                if where == "cuda":
+                    check(flash_attention.launches == before + 1, "flash forward: no launch")
+                    check(out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__,
+                          f"flash output on the card has grad_fn {out.grad_fn}")
+                (out.float() * g.to(where)).sum().backward()
+                if where == "cuda":
+                    check(flash_attention.launches == before + 1, "flash backward launched a kernel")
+                leaves[where] = (out.detach().float().cpu(), [t.grad.float().cpu() for t in ts])
+            fwd = live_rows_err(leaves["cuda"][0], leaves["cpu"][0], mask)
+            check(fwd <= (2e-2 if dtype == torch.bfloat16 else 1e-4),
+                  f"flash forward {dtype} causal={causal}: error {fwd}")
+            errs = []
+            for name, got, want in zip("qkv", leaves["cuda"][1], leaves["cpu"][1]):
+                e = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+                check(e <= GRAD_TOL[dtype], f"d{name} {dtype} causal={causal}: error {e}")
+                errs.append(e)
+            key = f"{str(dtype).split('.')[-1]}, causal={causal}"
+            worst[key] = {"forward": fwd, "grad": max(errs)}
+            log(f"  flash [{b},{h},{l},{d}] {key}, ragged mask: forward max |err| {fwd:.3g}; "
+                f"dq / dk / dv error (share of max(1, |grad|)) "
+                f"{' / '.join(f'{e:.3g}' for e in errs)} (tolerance {GRAD_TOL[dtype]:g})  ok")
+    q = torch.randn((b, h, l, d), generator=gen).cuda().bfloat16().requires_grad_()
+    before = flash_attention.launches
+    with torch.no_grad():
+        out = flash_attention(q, q, q)
+    check(flash_attention.launches == before + 1 and out.grad_fn is None,
+          "flash under no_grad: not one plain launch")
+    log("  under torch.no_grad(): one launch a call and no autograd record, as before the "
+        "repair  ok")
+    return worst
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -2068,6 +2642,7 @@ def main() -> int:
     decoder_shape = check_flash_decoder_shape(flash_attention, reference_attention)
     check_padded_shapes(knn_topk, flash_attention, reference_attention)
     d256_shape = check_flash_d256(flash_attention, reference_attention)
+    f32_shapes = time_flash_f32(flash_attention, reference_attention)
 
     log("[4] main path: ingest, 2^20-row index, retrieval")
     docs = make_docs(N_DOCS, random.Random(0))
@@ -2092,7 +2667,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     decoder = run_decoder(card, flash_attention)
     decoder_shape["launches"] = decoder["launches"]
-    flash_row["shapes"] = [decoder_shape, d256_shape]
+    flash_row["shapes"] = [decoder_shape, d256_shape, *f32_shapes]
     log(f"  flash_attention launches on the decoder path (generate): {decoder['launches']}")
     log(f"  decoder phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -2177,6 +2752,24 @@ def main() -> int:
     log(f"  launches on the pw.ml path: knn_topk {knn_topk.launches} (KNNIndex l2sq and cos, "
         f"the classifier's index), flash_attention {flash_attention.launches}; phase 12 "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+    # phase 13 runs after 12 and before 8, as 9 does: the wordcount's
+    # engine is not to weigh on it
+    log("[13] operability on the card: the capacity plan, the profiler, the cli, before phase 8")
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    t_phase = time.perf_counter()
+    run_capacity_parity(card)
+    run_profile_while_serving(card)
+    run_cli_on_card(card)
+    check(knn_topk.launches > 0, "the DocumentStore served under /profile launched no knn_topk")
+    knn_row["launches_by_path"]["operability"] = knn_topk.launches
+    flash_row["launches_by_path"]["operability"] = flash_attention.launches
+    log(f"  launches on the operability path: knn_topk {knn_topk.launches} (13b's searches), "
+        f"flash_attention {flash_attention.launches} (L = 64, under the flash gate)")
+    log("[13d] flash gradients on the card against the CPU path")
+    flash_row["gradients"] = check_flash_gradients(flash_attention, reference_attention)
+    log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
 
     log("[8] the framework path on the card's host")
     gc.collect()

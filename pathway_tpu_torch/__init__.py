@@ -21,11 +21,20 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
     `pw.stateful`, `pw.statistical`, `pw.utils`, `pw.ml` (`KNNIndex`
     on the card's knn_topk), `pw.graphs`, `pw.viz` (over
     internals/interactive.py) and `pw.xpacks.connectors` (SharePoint);
+  * the operability surface, copied from the JAX package: the static
+    analyzer (analysis/: `pw.run(analysis="warn"|"strict")`, whose
+    capacity plan predicts the port's own index allocation), the
+    on-demand profiler (internals/profiler.py: `torch.profiler` into a
+    Chrome trace, behind the monitoring server's /profile and /status)
+    and the cli (`pathway-tpu-torch`, or `python -m pathway_tpu_torch.cli`:
+    analyze, trace, status, top, profile, restart, explain, spawn,
+    airbyte);
   * the MiniLM-class encoder, the cross-encoder and the decoder
     (models/), the device KNN
     index and the fused embed+search object (ops/knn.py), and
     hand-written Hopper kernels for the JAX package's two Pallas kernels
-    (ops/kernels/).
+    (ops/kernels/; flash is differentiable, its backward recomputing
+    the plain version as the JAX package's does).
 
 Usage mirrors the JAX package::
 
@@ -40,10 +49,9 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-Not ported yet: `pw.sql`, `pw.load_yaml`, `pw.demo`, the cli, the
-connectors other than fs / csv / jsonlines / plaintext / python / null /
-s3 / http, the static analyzer, training, the device mesh and the
-profiler.
+Not ported yet: `pw.sql`, `pw.load_yaml`, `pw.demo`, the connectors
+other than fs / csv / jsonlines / plaintext / python / null / s3 / http /
+airbyte, training and the device mesh.
 """
 
 from __future__ import annotations

@@ -127,6 +127,14 @@ class ExternalIndexNode(Node):
         # document before sink completion callbacks fire
         self._drain_index()
 
+    def on_end(self) -> None:
+        # the run is over: a backend with threads of its own (the fused
+        # index's device pipeline) stops them, so that they do not hold
+        # the index past its run
+        close = getattr(self.index, "close", None)
+        if close is not None:
+            close()
+
     def snapshot_state(self) -> dict | None:
         # snapshots capture host-side rows only, but the commit point
         # must not advance past device work still in flight

@@ -122,10 +122,13 @@ def last_engine():
 def _apply_analysis(
     engine: Engine, mode, mesh=None, baseline=None, slo=None
 ) -> None:
-    """The JAX package runs its static analyzer here. The port has the
-    fusion planner only, so "off" (the default) returns, and "warn" or
-    "strict" raise NotImplementedError. A mesh spec turns analysis on
-    (at least "warn"), as in the JAX package."""
+    """Run the static analyzer over the registered sinks, verify its
+    columnar predictions and the fusion plan against the freshly built
+    nodes, and attach the result to the engine (the /status endpoint
+    serves it).  "warn" logs findings, "strict" refuses to run on
+    warning-or-worse.  A mesh spec turns analysis on (at least "warn")
+    and makes its PWT4xx ERROR findings fail fast regardless of mode —
+    that fail-fast is the whole point of pw.run(mesh=...)."""
     if mesh is not None and (mode is None or mode == "off"):
         mode = "warn"
     if mode is None or mode == "off":
@@ -134,10 +137,42 @@ def _apply_analysis(
         raise ValueError(
             f"analysis= must be 'strict', 'warn' or 'off', got {mode!r}"
         )
-    raise NotImplementedError(
-        f"pw.run(analysis={mode!r}) runs the static analyzer, which "
-        "pathway_tpu_torch does not have yet (ROADMAP: Queue 1, the static "
-        "analyzer)"
+    import logging
+
+    from pathway_tpu_torch.analysis import (
+        AnalysisError,
+        Severity,
+        analyze,
+        verify_against_plan,
+        verify_capacity,
+        verify_fusion,
+        verify_purity,
+    )
+
+    result = analyze(G, workers=engine.worker_count, mesh=mesh, slo=slo)
+    verify_against_plan(engine, result)
+    verify_fusion(engine, result)
+    verify_capacity(engine, result)
+    verify_purity(engine, result)
+    baseline_info = None
+    if baseline:
+        from pathway_tpu_torch.analysis.baseline import apply_baseline
+
+        baseline_info = apply_baseline(result, baseline)
+    engine.analysis = result.to_dict()
+    if baseline_info is not None:
+        engine.analysis["baseline"] = baseline_info
+    if not result.findings:
+        return
+    if mesh is not None and any(
+        f.code.startswith("PWT4") and f.severity >= Severity.ERROR
+        for f in result.findings
+    ):
+        raise AnalysisError(result)
+    if mode == "strict" and result.max_severity() >= Severity.WARNING:
+        raise AnalysisError(result)
+    logging.getLogger("pathway_tpu_torch").warning(
+        "static analysis:\n%s", result.render_text()
     )
 
 
@@ -427,6 +462,13 @@ def _run_threaded(
         t.start()
     _supervise_thread_group(group, ts, worker, threads)
     if errors:
+        from pathway_tpu_torch.analysis import AnalysisError
+
+        # strict-mode refusal on thread 0 races with the abort errors it
+        # triggers on the other workers; surface the real cause
+        for e in errors:
+            if isinstance(e, AnalysisError):
+                raise e
         raise errors[0]
 
 

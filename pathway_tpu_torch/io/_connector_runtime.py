@@ -329,6 +329,16 @@ class ConnectorSubjectBase:
         else:
             self.next_batch([dict(zip(names, v)) for v in values_list])
 
+    def _wait_for_run_end(self, seconds: float) -> bool:
+        """Sleep `seconds` between a streaming reader's polls; True, at
+        once, when the run it feeds has ended, so that the reader returns
+        rather than poll on for a run that reads no more."""
+        ended = getattr(self._sink, "ended", None)
+        if ended is None:
+            time_mod.sleep(seconds)
+            return False
+        return ended.wait(seconds)
+
     def report_retry(self, delay: float = 0.0) -> None:
         """Count a transient read failure that the subject retried
         (network hiccup, rate limit) and the backoff it cost.  Retry
@@ -424,18 +434,31 @@ class _QueueSink:
         self._seed = seq_key_seed("live", live.name)
         self._keys_by_values: Dict[tuple, List] = {}
         self.subject = None  # bound by the driver
+        self.ended = threading.Event()  # set when the driver's run ends
 
     persistence_enabled = False
+
+    def detach(self) -> None:
+        """The run is over: let go of it (its queue, and through the
+        source its engine), so that a reader still polling holds nothing
+        of the run, and wake readers waiting for its end.  Rows and
+        commits after this go nowhere, as they did into the unread
+        queue."""
+        self.queue = None
+        self.live = None
+        self.subject = None
+        self.ended.set()
 
     def push_row(self, row: dict, diff: int = 1) -> None:
         from pathway_tpu_torch.engine.value import seq_key
 
-        if self.live.sync_group is not None and diff > 0:
+        queue, live = self.queue, self.live
+        if queue is None:
+            return
+        if live.sync_group is not None and diff > 0:
             # throttle until the group's other sources catch up (reference:
             # src/connectors/synchronization.rs)
-            self.live.sync_group.wait_for(
-                self.live, row.get(self.live.sync_column)
-            )
+            live.sync_group.wait_for(live, row.get(live.sync_column))
         values = tuple(row.get(c) for c in self.names)
         if "_pw_key" in row:
             key = row["_pw_key"]
@@ -454,7 +477,7 @@ class _QueueSink:
             key = stack.pop()
         # the counter rides every data message so autocommit-flushed
         # batches persist a correct resume point even without commit()
-        self.queue.put(("data", self.live, (key, values, diff), self._counter))
+        queue.put(("data", live, (key, values, diff), self._counter))
 
     def push_rows(self, rows: List[dict]) -> None:
         """Bulk inserts: one queue message for the whole batch.  Falls
@@ -464,7 +487,10 @@ class _QueueSink:
         readers guarantee this; schema-filtered rows never carry it)."""
         from pathway_tpu_torch.engine.value import seq_keys_batch
 
-        if self.live.sync_group is not None or (
+        live = self.live
+        if live is None:
+            return
+        if live.sync_group is not None or (
             rows and "_pw_key" in rows[0]
         ):
             for r in rows:
@@ -476,7 +502,10 @@ class _QueueSink:
         """Bulk insert of pre-ordered values tuples (no row dicts)."""
         from pathway_tpu_torch.engine.value import seq_keys_batch
 
-        if self.live.sync_group is not None:
+        queue, live = self.queue, self.live
+        if queue is None:
+            return
+        if live.sync_group is not None:
             for v in values_list:
                 self.push_row(dict(zip(self.names, v)))
             return
@@ -494,19 +523,25 @@ class _QueueSink:
             for v, k in zip(values_list, keys):
                 kv.setdefault(_hashable(v), []).append(k)
         deltas = [(k, v, 1) for k, v in zip(keys, values_list)]
-        self.queue.put(("data_batch", self.live, deltas, self._counter))
+        queue.put(("data_batch", live, deltas, self._counter))
 
     def commit(self, barrier: bool = False) -> None:
+        queue, live, subject = self.queue, self.live, self.subject
+        if queue is None:
+            return
         state = None
-        if self.persistence_enabled and self.subject is not None:
-            state = {"subject": self.subject._persisted_state()}
+        if self.persistence_enabled and subject is not None:
+            state = {"subject": subject._persisted_state()}
         kind = "commit_b" if barrier else "commit"
-        self.queue.put((kind, self.live, state, self._counter))
+        queue.put((kind, live, state, self._counter))
 
     def close(self) -> None:
-        if self.live.sync_group is not None:
-            self.live.sync_group.source_closed(self.live)
-        self.queue.put(("close", self.live, None, self._counter))
+        queue, live = self.queue, self.live
+        if queue is None:
+            return
+        if live.sync_group is not None:
+            live.sync_group.source_closed(live)
+        queue.put(("close", live, None, self._counter))
 
 
 class StreamingDriver:
@@ -544,12 +579,18 @@ class StreamingDriver:
         return writer
 
     def run(self, sources: List[LiveSource]) -> None:
+        self._sinks: Dict[LiveSource, _QueueSink] = {}
         try:
             self._run(sources)
         finally:
             # finish() unfreezes on the success path; this also covers
             # exceptions mid-stream (engine._gc_pulse freezes the gc)
             self.engine._gc_unfreeze()
+            # the run is over: its readers let go of it and the polling
+            # ones return, or a reader asleep in its refresh interval
+            # would hold the engine, its index and its model for good
+            for sink in self._sinks.values():
+                sink.detach()
 
     def _run(self, sources: List[LiveSource]) -> None:
         import os
@@ -562,7 +603,7 @@ class StreamingDriver:
         active = 0
         replayed: Dict[LiveSource, List] = {}
         my_worker = self.engine.worker_id
-        sinks: Dict[LiveSource, _QueueSink] = {}
+        sinks = self._sinks
         last_event: Dict[LiveSource, float] = {}
 
         # operator snapshots (reference: dataflow/persist.rs): restore node
@@ -1034,6 +1075,7 @@ class StreamingDriver:
                         t.start()
                     started = True
                 while not done:
+                    throttled = 0.0
                     if health.ENABLED:
                         # adaptive backpressure: while the controller
                         # holds pressure, pace ingest with its
@@ -1041,10 +1083,15 @@ class StreamingDriver:
                         throttle = health.controller().throttle_delay()
                         if throttle > 0.0:
                             time_mod.sleep(throttle)
+                            throttled = throttle
+                    # the pacing sleep does not count toward the autocommit
+                    # deadline: a delay as long as the autocommit interval
+                    # would otherwise flush every tick before reading and
+                    # never read the queue again
                     timeout = max(
                         0.0,
                         self.autocommit_s
-                        - (time_mod.monotonic() - last_flush),
+                        - (time_mod.monotonic() - last_flush - throttled),
                     )
                     if timeout == 0.0:
                         # autocommit deadline passed — flush even if the

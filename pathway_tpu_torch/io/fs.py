@@ -339,7 +339,8 @@ class _FsSubject(ConnectorSubjectBase):
                 self.commit()
             if self.mode == "static":
                 return
-            time_mod.sleep(self.refresh_interval)
+            if self._wait_for_run_end(self.refresh_interval):
+                return
 
     def _persisted_state(self):
         return {"seen": dict(self._seen)}

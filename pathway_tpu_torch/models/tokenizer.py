@@ -324,6 +324,28 @@ def pack_batch(
     return ids, seg, slots
 
 
+def predict_pad_waste(
+    lengths: Sequence[int], batch_size: int, *, max_len: int = 512
+) -> float:
+    """Predicted padding-waste fraction of the CLASSIC (unpacked) encode
+    path for a UDF batch of `batch_size` docs drawn from the sampled
+    token `lengths`: real tokens vs the bucketed [B', L'] slab that
+    encode_batch would dispatch. Used by the PWT401 analyzer lint to flag
+    embedder configs whose batch/bucket shape spends most of the card's
+    products on pad tokens."""
+    if not lengths or batch_size <= 0:
+        return 0.0
+    batch = [
+        max(1, min(int(lengths[i % len(lengths)]), max_len))
+        for i in range(batch_size)
+    ]
+    seq_len = seq_bucket_length(max(batch), maximum=max_len)
+    padded_batch = bucket_length(batch_size, minimum=8, maximum=1 << 16)
+    real = sum(batch)
+    total = padded_batch * seq_len
+    return 1.0 - (real / float(total)) if total else 0.0
+
+
 def _wire_dtype(tokenizer):
     """THE wire-narrowing policy for token uploads (single source — the
     models upcast on device): int16/uint16 halves the host->device

@@ -25,7 +25,13 @@ on the CPU. A CUDA tensor launches the kernel or raises.
 Rows whose keys are all masked are not zero: the additive -1e30 leaves
 every score near -1e30, so such a row averages v. The kernel is finite
 there and matches the reference on every row with at least one live key.
-No backward: serving needs none.
+
+Differentiable, as the JAX package's `flash_attention` (a custom_vjp) is:
+where q, k or v require grad, the card's forward runs inside a
+`torch.autograd.Function` whose backward recomputes `reference_attention`
+and differentiates it (dq, dk, dv; the mask gets none). There is no
+backward kernel. Under `torch.no_grad()`, as on every serving path, the
+wrapper launches the kernel alone and saves nothing.
 """
 
 from __future__ import annotations
@@ -71,9 +77,10 @@ def reference_attention(q, k, v, kv_mask, sm_scale: float, causal: bool):
 
 
 def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale=None):
-    """Fused attention forward. q: [B, H, Lq, D]; k, v: [B, H, Lk, D];
-    kv_mask: [B, Lk] (1 = valid), default all valid. Output like q. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    """Fused attention. q: [B, H, Lq, D]; k, v: [B, H, Lk, D]; kv_mask:
+    [B, Lk] (1 = valid), default all valid. Output like q. CPU tensors take
+    the plain version; CUDA tensors launch the kernel, inside
+    `_FlashAttention` where q, k or v require grad."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if kv_mask is None:
@@ -82,6 +89,14 @@ def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale=Non
         return reference_attention(q, k, v, kv_mask, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, kv_mask, sm_scale, causal)
+    return _launch(q, k, v, kv_mask, sm_scale, causal)
+
+
+def _launch(q, k, v, kv_mask, sm_scale: float, causal: bool):
+    """One launch of the kernel on CUDA tensors, after checking them and
+    padding the head dim to the next instance."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("flash_attention: q, k, v must be float32 or bfloat16")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -113,6 +128,26 @@ def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale=Non
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out if d_pad == d else out[..., :d].contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the JAX package's backward: recompute the
+    plain version and differentiate it (pathway_tpu's `attn_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, sm_scale, causal):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        return _launch(q, k, v, kv_mask, sm_scale, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = reference_attention(*inputs, kv_mask, ctx.sm_scale, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, inputs, g)
+        return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0

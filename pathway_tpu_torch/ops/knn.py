@@ -101,6 +101,25 @@ def _search(index, valid, queries, k: int, metric: str):
     return top_s, top_i
 
 
+def index_rows(reserved_space: int) -> int:
+    """The buffer rows DeviceKnnIndex allocates for `reserved_space`: the
+    next power of two, at least 8. analysis/capacity.py predicts from it."""
+    return max(8, next_pow2(int(reserved_space)))
+
+
+def padded_width(dimensions: int) -> int:
+    """The buffer's row width: `dimensions` padded with zero columns to a
+    multiple of 4 (16-byte rows, as the kernel's TMA loads need); zeros
+    change no ip, cos or l2sq score."""
+    return -(-int(dimensions) // 4) * 4
+
+
+def index_row_bytes(dimensions: int) -> int:
+    """Device bytes a buffer row takes: f32 at the padded width plus its
+    bool valid flag."""
+    return 4 * padded_width(dimensions) + 1
+
+
 class DeviceKnnIndex:
     """Mutable KNN index with a device-resident, power-of-two buffer.
 
@@ -119,11 +138,9 @@ class DeviceKnnIndex:
             raise ValueError(f"unknown metric {metric!r}")
         self.device = resolve_device(device)
         self.d = dimensions
-        # the buffer's rows are padded with zero columns to 16 bytes, as the
-        # kernel's TMA loads need; zeros change no ip, cos or l2sq score
-        self._d_pad = -(-dimensions // 4) * 4
+        self._d_pad = padded_width(dimensions)
         self.metric = metric
-        self.capacity = max(8, next_pow2(reserved_space))
+        self.capacity = index_rows(reserved_space)
         self._buffer = torch.zeros(
             (self.capacity, self._d_pad), dtype=torch.float32, device=self.device
         )
@@ -148,7 +165,7 @@ class DeviceKnnIndex:
         memtrack.tracker().register(
             "knn_index",
             self,
-            self.capacity * (4 * self._d_pad + 1),
+            self.capacity * index_row_bytes(self.d),
             device_span=1,
             dp_shards=1,
             capacity=self.capacity,
@@ -158,7 +175,7 @@ class DeviceKnnIndex:
     def _note_ingest(self, new_rows: int) -> None:
         """Feed the ingest-rate forecaster: each new row takes one buffer
         row."""
-        memtrack.tracker().note_ingest(new_rows, new_rows * (4 * self._d_pad + 1))
+        memtrack.tracker().note_ingest(new_rows, new_rows * index_row_bytes(self.d))
 
     def _normalize(self, vectors):
         """cos rows are normalised ONCE at insert time so searches never

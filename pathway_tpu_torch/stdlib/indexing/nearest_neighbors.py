@@ -213,6 +213,7 @@ class _FusedKnnIndexImpl(IndexImpl):
         self.fused = FusedEmbedSearch(encoder, self.knn, device=encoder.device)
         self.metadata: dict = {}
         self._pipeline = None
+        self._pipeline_closed = False
         self._pipeline_broken = False
 
     def add(self, key, value, metadata) -> None:
@@ -246,7 +247,8 @@ class _FusedKnnIndexImpl(IndexImpl):
         )
 
     def _ensure_pipeline(self):
-        if self._pipeline is None:
+        if self._pipeline is None or self._pipeline_closed:
+            self._pipeline_closed = False
             from pathway_tpu_torch.internals.device_pipeline import DevicePipeline
 
             self._pipeline = DevicePipeline(
@@ -296,7 +298,7 @@ class _FusedKnnIndexImpl(IndexImpl):
         from pathway_tpu_torch.internals.device_pipeline import DevicePipelineError
 
         pipe = self._pipeline
-        if pipe is None:
+        if pipe is None or self._pipeline_closed:
             return
         try:
             if full:
@@ -310,6 +312,14 @@ class _FusedKnnIndexImpl(IndexImpl):
         """Complete all in-flight pipeline batches and quiesce the device
         — the snapshot / rollback / failover / finish contract."""
         self._sync_pipeline(full=True)
+
+    def close(self) -> None:
+        """The run is over: stop the pipeline's threads, which would hold
+        this index (and its device memory) for the life of the process.
+        Its stats stay readable; a later batch starts a new pipeline."""
+        if self._pipeline is not None and not self._pipeline_closed:
+            self._pipeline.close()
+            self._pipeline_closed = True
 
     def take_aux_spans(self):
         if self._pipeline is None:

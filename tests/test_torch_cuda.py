@@ -533,3 +533,39 @@ def test_hf_pipeline_chat_on_card_matches_cpu(card):
     got = chat.func(prompts)
     assert kernels.flash_attention.launches == before + 2  # the prefill's, one per layer
     assert got == cpu.generate(prompts, max_new_tokens=6)
+
+
+@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradients_on_card_match_cpu(card, d, dtype, causal):
+    """Flash is differentiable on the card as on the CPU: its output has a
+    grad_fn, and the gradients of q, k and v (the kernel's forward, the
+    plain version recomputed for the backward) match the CPU path's within
+    a share of max(1, |grad|): f32 1e-4, bf16 3e-2 (the backward's products
+    round to bf16 on both sides). The backward launches no kernel; under
+    no_grad the call launches once and records nothing."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(d + causal)
+    q, k, v, g = (torch.randn((2, 3, 200, d), generator=gen) for _ in range(4))
+    mask = torch.ones((2, 200), dtype=torch.int32)
+    mask[1, 77:] = 0
+    grads = {}
+    for where in ("cuda", "cpu"):
+        ts = [t.to(where, dt).requires_grad_() for t in (q, k, v)]
+        before = kernels.flash_attention.launches
+        out = kernels.flash_attention(*ts, mask.to(where), causal=causal)
+        assert out.grad_fn is not None
+        (out.float() * g.to(where)).sum().backward()
+        if where == "cuda":
+            assert kernels.flash_attention.launches == before + 1
+        grads[where] = [t.grad.float().cpu() for t in ts]
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for name, got, want in zip("qkv", grads["cuda"], grads["cpu"]):
+        err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+        assert err <= tol, f"d{name}: {err}"
+    x = q.to(card, dt).requires_grad_()
+    before = kernels.flash_attention.launches
+    with torch.no_grad():
+        out = kernels.flash_attention(x, x, x, mask.to(card), causal=causal)
+    assert out.grad_fn is None and kernels.flash_attention.launches == before + 1

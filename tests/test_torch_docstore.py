@@ -564,3 +564,70 @@ def test_cpu_vector_index_under_a_degraded_monitor_answers_like_jax(monkeypatch,
         assert [key for key, _ in got] == [key for key, _ in want] == [key for key, _ in direct]
         np.testing.assert_allclose([s for _, s in got], [s for _, s in want], atol=1e-5)
         np.testing.assert_allclose([s for _, s in got], [s for _, s in direct], atol=1e-5)
+
+
+def test_a_finished_streaming_run_lets_go_of_its_engine_and_index(tmp_path):
+    """A streaming run stopped through its terminate flag holds nothing
+    after it: its fused index closes its DevicePipeline at the run's end,
+    and its fs reader, asleep in a refresh interval of an hour, lets go of
+    the run and returns at once. So the engine and the index's device
+    memory are collected (memtrack drops the index's registration) while
+    the caller still holds the embedder."""
+    import gc
+    import threading
+    import time
+    import weakref
+
+    from pathway_tpu_torch.internals import device_pipeline, memtrack
+    from pathway_tpu_torch.internals import runner as port_runner
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+    embedder = _embedders()["port"]
+    _write_jsonlines(str(tmp_path), DOCS)
+    memtrack.reset_for_tests()
+    pipelines_before = set(device_pipeline._PIPELINES)
+    threads_before = set(threading.enumerate())
+    counts: list = []
+    tpw.G.clear()
+    docs = tpw.io.jsonlines.read(
+        str(tmp_path), schema=tpw.schema_from_types(data=str, _metadata=tpw.Json),
+        mode="streaming", refresh_interval=3600.0,
+    )
+    store = DocumentStore(
+        docs, retriever_factory=BruteForceKnnFactory(embedder=embedder, reserved_space=64)
+    )
+    queries = tpw.debug.table_from_rows(store.RetrieveQuerySchema, [("doc1", 2, None, None)])
+    tpw.io.subscribe(store.retrieve_query(queries), on_change=lambda *a, **k: None)
+    tpw.io.subscribe(
+        store.chunked_docs.groupby().reduce(c=tpw.reducers.count()),
+        on_change=lambda key, row, time, is_addition: counts.append(row["c"]),
+    )
+    run = threading.Thread(
+        target=tpw.run, kwargs={"autocommit_duration_ms": 25}, daemon=True
+    )
+    run.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not counts or counts[-1] < len(DOCS):
+            assert run.is_alive() and time.monotonic() < deadline, counts
+            time.sleep(0.01)
+        assert len(memtrack.tracker().entries("knn_index")) == 1
+        engine = weakref.ref(port_runner.last_engine())
+        assert set(device_pipeline._PIPELINES) - pipelines_before, "the ingest took no pipeline"
+    finally:
+        port_runner.last_engine().terminate_flag.set()
+        run.join(timeout=60)
+    assert not run.is_alive()
+    del docs, store, queries
+    tpw.G.clear()
+    port_runner._last_engine = None
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads_before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not set(threading.enumerate()) - threads_before, "a thread of the run lives on"
+    gc.collect()
+    assert engine() is None, "the finished run's engine is still referenced"
+    assert set(device_pipeline._PIPELINES) == pipelines_before
+    assert memtrack.tracker().entries("knn_index") == []
+    memtrack.reset_for_tests()

@@ -609,10 +609,63 @@ def test_trace_points_at_the_users_line():
 
 @pytest.mark.parametrize("kwargs", [{"analysis": "warn"}, {"analysis": "strict"}, {"mesh": "dp=2"}])
 def test_run_refuses_the_analyzer_paths_it_does_not_have(kwargs):
+    """Of these paths the port lacks only the device mesh, so
+    pw.run(mesh=...) raises; analysis="warn" / "strict" run the ported
+    static analyzer, which finds nothing to refuse here and attaches its
+    result to the engine (tests/test_torch_analysis.py holds it to the
+    JAX package's)."""
+    from pathway_tpu_torch.internals.runner import last_engine
+
     tpw.G.clear()
     try:
-        tpw.io.subscribe(tpw.debug.table_from_markdown("v\n1\n"), on_change=lambda *a: None)
-        with pytest.raises(NotImplementedError, match="static analyzer|device mesh"):
+        tpw.io.subscribe(tpw.debug.table_from_markdown("v\n1\n"), on_change=lambda *a, **k: None)
+        if "mesh" in kwargs:
+            with pytest.raises(NotImplementedError, match="device mesh"):
+                tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
+        else:
             tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
+            analysis = last_engine().analysis
+            assert analysis is not None and analysis["findings"] == []
     finally:
         tpw.G.clear()
+
+
+def test_an_ingest_throttle_as_long_as_the_autocommit_interval_paces_reads(monkeypatch):
+    """Under backpressure the streaming driver sleeps the health
+    controller's delay each tick. A delay as long as the autocommit
+    interval must pace ingest, not stop it: the sleep used to count
+    toward the autocommit deadline, so every tick flushed before reading
+    and the driver never read its queue again."""
+    from pathway_tpu_torch.internals import health
+    from pathway_tpu_torch.internals.runner import last_engine
+
+    monkeypatch.setattr(health, "ENABLED", True)
+    monkeypatch.setattr(health.controller(), "throttle_delay", lambda: 0.05)
+
+    class Rows(tpw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i in range(5):
+                self.next(v=i)
+                self.commit()
+
+    tpw.G.clear()
+    seen: list = []
+    tpw.io.subscribe(
+        tpw.io.python.read(Rows(), schema=tpw.schema_from_types(v=int)),
+        on_change=lambda key, row, time, is_addition: seen.append(row["v"]),
+    )
+    run = threading.Thread(
+        target=tpw.run,
+        kwargs={"autocommit_duration_ms": 25, "monitoring_level": tpw.MonitoringLevel.NONE},
+        daemon=True,
+    )
+    run.start()
+    try:
+        run.join(timeout=30)
+        assert not run.is_alive(), f"the run read {seen} and did not end"
+    finally:
+        if run.is_alive():
+            last_engine().terminate_flag.set()
+            run.join(timeout=10)
+        tpw.G.clear()
+    assert sorted(seen) == list(range(5))

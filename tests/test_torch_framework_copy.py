@@ -2,7 +2,8 @@
 
 The engine, Table DSL (with internals/interactive.py), connectors
 (pw.io.http with its REST server among them), persistence, debug,
-observability, UDF, stdlib (indexing, temporal windows and joins,
+observability (the profiler among them), the static analyzer and the cli
+(cli.py), UDF, stdlib (indexing, temporal windows and joins,
 ordered, stateful, statistical, utils, ml, graphs, viz) and xpack
 modules (the LLM xpack with RAG question answering, prompts, chats,
 rerankers and the REST / MCP servers, and xpacks/connectors) under
@@ -32,7 +33,7 @@ PORT_PKG = os.path.join(REPO, "pathway_tpu_torch")
 _COPIED_DIRS = (
     "analysis", "debug", "engine", "internals", "io", "persistence", "stdlib", "xpacks",
 )
-_COPIED_FILES = ("universes.py",)
+_COPIED_FILES = ("cli.py", "universes.py")
 
 EDITED = {
     "internals/device_pipeline.py": (
@@ -47,12 +48,33 @@ EDITED = {
         "no device mesh in the port yet: activate() and batch_sharding() raise "
         "in place of building a jax.sharding.Mesh"
     ),
-    "internals/runner.py": (
-        "the static analyzer is not ported: analysis='warn'/'strict' raise "
-        "NotImplementedError in _apply_analysis (mesh= already raised in "
-        "mesh_backend.activate), and the threaded run has no AnalysisError to surface"
+    "internals/profiler.py": (
+        "captures with torch.profiler (CPU activity, plus CUDA where the process "
+        "has a card) into one Chrome trace JSON file, named in the result as "
+        "trace_file, in place of jax.profiler's XPlane directory; every profiler "
+        "user holds the busy guard through exclusive(), which also sets the "
+        "session's CUPTI teardown; a process's first capture on a card sets CUPTI "
+        "up in a session of its own before the window (setup_seconds); "
+        "capture_local drives a bf16 torch matmul on device= (None: the CUDA "
+        "card) in place of a jitted jnp chain"
     ),
-    "analysis/__init__.py": "exports the fusion planner only; the analyzer's passes are not ported",
+    "analysis/capacity.py": (
+        "predict_index_bytes predicts the port's DeviceKnnIndex allocation from "
+        "ops/knn.py's index_rows / index_row_bytes: rows padded to a multiple of "
+        "4 float32 columns, which the JAX package's slab does not have, so the "
+        "PWT601 message names the padded row bytes"
+    ),
+    "cli.py": (
+        "the parser's prog is pathway-tpu-torch (the JAX package owns pathway and "
+        "pathway-tpu), and profile's help names torch.profiler and the CUDA card "
+        "in place of jax.profiler"
+    ),
+    "internals/trace_tool.py": (
+        "the top frame and the restart hint name pathway-tpu-torch, profile "
+        "points at the Chrome trace file (chrome://tracing, Perfetto) in place of "
+        "tensorboard / xprof, and profile --url waits 120 s past the window, not "
+        "30: a job's first capture on a card sets CUPTI up before its window"
+    ),
     "internals/costmodel.py": (
         "device_name reads torch.cuda.get_device_name in place of jax.devices(), "
         "and the peak tables hold the H100's published numbers in place of the TPUs'"
@@ -69,7 +91,26 @@ EDITED = {
         "the vector impl; mesh= and an active mesh backend raise (no device mesh); "
         "the vector impl keeps its host mirror and numpy search for a CPU index only, "
         "and on the card a degraded monitor makes search_many raise DeviceDegradedError "
-        "instead of moving the search to the host"
+        "instead of moving the search to the host; the fused impl's close() stops its "
+        "DevicePipeline at the run's end, which would hold the index's device memory"
+    ),
+    "engine/index_node.py": (
+        "ExternalIndexNode.on_end calls the index backend's close() where it has one, "
+        "so that the fused index's pipeline threads do not hold it past its run"
+    ),
+    "io/_connector_runtime.py": (
+        "when the streaming driver's run ends it detaches its sinks: they drop the "
+        "queue and the source (and through it the engine, its index and its model), "
+        "later rows and commits go nowhere, and ConnectorSubjectBase."
+        "_wait_for_run_end wakes the polling readers so that they return; the "
+        "health controller's pacing sleep no longer counts toward the autocommit "
+        "deadline, which at a delay as long as the interval flushed every tick "
+        "before reading and never read the queue again"
+    ),
+    "io/fs.py": (
+        "the streaming reader waits out its refresh interval through "
+        "_wait_for_run_end and returns when the run has ended, in place of a sleep "
+        "that held the finished run for the interval and then polled on"
     ),
     "xpacks/llm/embedders.py": (
         "SentenceTransformerEmbedder(device=None) places the encoder (None: the "

@@ -20,7 +20,8 @@ def _port_files():
     # same rule
     out = [
         os.path.join(REPO, name)
-        for name in ("chip_smoke.py", "trace_port.py", os.path.join("tests", "test_torch_cuda.py"))
+        for name in ("chip_smoke.py", "trace_port.py",
+                     os.path.join("tests", "test_torch_cuda.py"))
     ]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -84,6 +85,10 @@ def test_importing_the_port_loads_no_jax():
         "pw.io.http.PathwayWebserver, pw.xpacks.llm.servers.QASummaryRestServer\n"
         "import pathway_tpu_torch.stdlib.graphs, pathway_tpu_torch.xpacks.connectors.sharepoint\n"
         "pw.temporal.windowby, pw.ml.index.KNNIndex, pw.ordered.diff, pw.viz.show, pw.LiveTable\n"
+        "import pathway_tpu_torch.cli, pathway_tpu_torch.analysis.tool, pathway_tpu_torch.io.airbyte\n"
+        "import pathway_tpu_torch.internals.trace_tool, pathway_tpu_torch.internals.supervisor\n"
+        "from pathway_tpu_torch.internals import profiler\n"
+        "from pathway_tpu_torch.analysis import analyze, verify_capacity, AnalysisError\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"
@@ -110,7 +115,7 @@ def _tiny_config():
     [
         "resolve_device", "TransformerLM", "SentenceEncoder", "DeviceKnnIndex",
         "FusedEmbedSearch", "ChatModel", "SentenceTransformerEmbedder", "_KnnIndexImpl",
-        "CrossEncoderModel", "HFPipelineChat", "CrossEncoderReranker",
+        "CrossEncoderModel", "HFPipelineChat", "CrossEncoderReranker", "capture_local",
     ],
 )
 def test_entry_points_raise_without_cuda(no_cuda, entry):
@@ -124,6 +129,7 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
     from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
     from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+    from pathway_tpu_torch.internals.profiler import capture_local
 
     make = {
         "resolve_device": lambda: resolve_device(None),
@@ -144,6 +150,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "CrossEncoderModel": lambda: CrossEncoderModel("iso-ce", config=_tiny_config()),
         "HFPipelineChat": lambda: HFPipelineChat("iso-decoder"),
         "CrossEncoderReranker": lambda: CrossEncoderReranker("iso-reranker"),
+        # `pathway-tpu-torch profile --device`: no capture starts
+        "capture_local": lambda: capture_local(0.05),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         make()

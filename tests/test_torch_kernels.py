@@ -239,3 +239,57 @@ def test_build_compiles_every_source_for_sm90a():
     assert {"knn_topk.cu", "flash_attention.cu"} <= set(sources)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._digest(_build._sources()) == _build._digest(_build._sources())
+
+
+# the backward of both packages recomputes the same f32 reference and
+# differentiates it, so their gradients differ by f32 rounding only
+FLASH_GRAD_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 160])
+def test_flash_gradients_match_jax_grad(d, causal):
+    """Gradients of q, k and v through the port's flash_attention on the
+    CPU against `jax.grad` of the JAX package's (its custom_vjp, the Pallas
+    forward in interpret mode at block 16), on a ragged mask with a fully
+    masked batch row, at atol FLASH_GRAD_ATOL."""
+    import jax
+
+    q, k, v, mask = _flash_inputs(np.float32, seed=11 + d, lq=40, lk=48, d=d)
+    w = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        out = jax_flash(q, k, v, jnp.asarray(mask), causal=causal, block_q=16, block_k=16)
+        return jnp.sum(out * jnp.asarray(w))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = port.flash_attention(tq, tk, tv, torch.from_numpy(mask), causal=causal)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert got.shape == ref.shape, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=FLASH_GRAD_ATOL, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_backward_is_the_plain_versions(monkeypatch, dtype):
+    """The card's autograd wiring, on the CPU: `_FlashAttention` with its
+    launch replaced by the plain version gives the plain version's own
+    gradients (its backward recomputes it), and none for the mask."""
+    import importlib
+
+    fa = importlib.import_module("pathway_tpu_torch.ops.kernels.flash_attention")
+    monkeypatch.setattr(fa, "_launch", lambda q, k, v, m, s, c: reference_attention(q, k, v, m, s, c))
+    q, k, v, mask = _flash_inputs(np.float32, seed=4, lq=24, lk=32, d=16)
+    mask = torch.from_numpy(mask)
+    w = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    grads = []
+    for apply in (fa._FlashAttention.apply, reference_attention):
+        t = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+        (apply(*t, mask, 0.25, True).float() * w).sum().backward()
+        grads.append([x.grad for x in t])
+    for got, want in zip(*grads):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -72,12 +72,15 @@ def _busy_us(prof) -> tuple[float | None, list]:
 def trace(name: str, run, device: torch.device, host_ms: float | None = None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    from pathway_tpu_torch.internals.profiler import exclusive
+
     run()  # warm-up: allocator, cuBLAS handles, first launches
     _sync(device)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    # the process's one CUPTI session: held against /profile captures
+    with exclusive(), profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         _sync(device)
