@@ -87,7 +87,7 @@ width with random weights from a seed:
      ids and scores against numpy's exact answer (knn_topk's l2sq and cos
      modes through _KnnIndexImpl), then knn_lsh_classifier_train's
      labels against a numpy majority vote;
- 13. operability on the card, run after 12 and before 8: (a) phase 9a's
+ 13. operability on the card, run after 14 and before 8: (a) phase 9a's
      configuration (16,384 docs, the fused index, full MiniLM-L6 width) under
      pw.run(analysis="warn", with_http_server=True): PWT601 and no ERROR
      finding, the capacity plan judged against the card's total memory, its
@@ -110,8 +110,26 @@ width with random weights from a seed:
      q, k and v through the kernel against the CPU path's at [2, 4, 256, 64]
      f32 and bf16, causal and not, ragged mask (GRAD_TOL), and one launch a
      call under no_grad;
+ 14. the declarative path, run after 12 and before 13 and 8: (a) the
+     demo-question-answering template's app.yaml (`qa_app_yaml`) loaded by
+     pw.load_yaml at full width: 4,096 plaintext documents of 300-450
+     words -> fs.read(binary, with_metadata) -> Utf8Parser ->
+     TokenCountSplitter(300, 450) -> SentenceTransformerEmbedder(max_len=
+     512), whose chunks take flash at head dim 32 -> BruteForceKnnFactory
+     -> DocumentStore -> BaseRAGQuestionAnswerer(HFPipelineChat over
+     ChatModel.cached("mistral-7b", max_len=4096)), whose prefills take
+     flash at head dim 128, served by its build_server / run_server: 8
+     sequential and 8 concurrent /v2/answer and /v1/retrieve, each
+     sequential answer against generate() on the prompt the app built,
+     /v1/retrieve against the index's search_texts, flash launches by
+     instance; (b) pw.sql over pw.io.sqlite.read: a GROUP BY ... HAVING,
+     a JOIN ... USING and a RANK() OVER (PARTITION BY ... ORDER BY ...)
+     over a 1,000,000-row fact table and a 1,000-row dimension table,
+     each result against sqlite3 running the same SQL on the same file;
+     (c) pw.demo.replay_csv at 10^6 rows/s through a groupby into
+     pw.io.subscribe, against plain Python;
  11. the card's line, one `kernels` JSON line (launches_by_path per phase,
-     "operability" included), then the `ok` JSON line.
+     "operability" and "declarative" included), then the `ok` JSON line.
 
 Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
 (wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
@@ -1265,6 +1283,34 @@ def _write_docs(docs, tmp: str) -> str:
     return docs_path
 
 
+def agrees_with_search_texts(answers, direct, node, k: int) -> tuple:
+    """The engine's answers (lists of {"text", "score"}) against
+    FusedEmbedSearch.search_texts on the same index ((key, score) lists;
+    `node` maps a key to its text): the same top-k, but for swaps that
+    are near-ties, whose scores lie within twice the largest score drift
+    between the two routes (over every doc both returned), plus f32
+    rounding, of the k-th score. Returns (answers equal in order, drift,
+    the near-tie tolerance)."""
+    text_of = {key: row[0] for key, row in node.data_rows.items()}
+    drift, exact, pairs = 0.0, 0, []
+    for ans, row in zip(answers, direct):
+        got = [(d["text"], d["score"]) for d in ans]
+        want = [(text_of[key], score) for key, score in row]
+        check(len(got) == len(want) == k, f"{len(got)} / {len(want)} answers, k = {k}")
+        want_score = dict(want)
+        drift = max([drift] + [abs(s - want_score[t]) for t, s in got if t in want_score])
+        pairs.append((got, want))
+    tie_tol = 2 * drift + 1e-5
+    for r, (got, want) in enumerate(pairs):
+        gk, wk = {t for t, _ in got}, {t for t, _ in want}
+        kth = min(got[-1][1], want[-1][1])
+        swapped = [s for t, s in got if t not in wk] + [s for t, s in want if t not in gk]
+        check(all(abs(s - kth) <= tie_tol for s in swapped),
+              f"query {r}: top-{k} differs from search_texts beyond near-ties: {got} vs {want}")
+        exact += [t for t, _ in got] == [t for t, _ in want]
+    return exact, drift, tie_tol
+
+
 def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dict:
     """9a: bench.py's framework path through pathway_tpu_torch, every
     default on: a warm-up run, bench.py's collect-and-freeze, then the
@@ -1306,27 +1352,9 @@ def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dic
     check(not device_degraded(), "the device monitor reports the card degraded")
 
     # the engine's answers, one query per batch, against one 32-query
-    # search_texts on the same index; a swap is a near-tie when its scores
-    # lie within twice the largest score drift between the two routes
-    # (over every doc both returned), plus f32 rounding
-    direct = impl.fused.search_texts(facts["queries"], K)
-    text_of = {key: row[0] for key, row in node.data_rows.items()}
-    drift, exact, pairs = 0.0, 0, []
-    for ans, row in zip(facts["answers"], direct):
-        got = [(d["text"], d["score"]) for d in ans]
-        want = [(text_of[key], score) for key, score in row]
-        check(len(got) == len(want) == K, f"{len(got)} / {len(want)} answers, k = {K}")
-        want_score = dict(want)
-        drift = max([drift] + [abs(s - want_score[t]) for t, s in got if t in want_score])
-        pairs.append((got, want))
-    tie_tol = 2 * drift + 1e-5
-    for r, (got, want) in enumerate(pairs):
-        gk, wk = {t for t, _ in got}, {t for t, _ in want}
-        kth = min(got[-1][1], want[-1][1])
-        swapped = [s for t, s in got if t not in wk] + [s for t, s in want if t not in gk]
-        check(all(abs(s - kth) <= tie_tol for s in swapped),
-              f"query {r}: top-{K} differs from search_texts beyond near-ties: {got} vs {want}")
-        exact += [t for t, _ in got] == [t for t, _ in want]
+    # search_texts on the same index
+    exact, drift, tie_tol = agrees_with_search_texts(
+        facts["answers"], impl.fused.search_texts(facts["queries"], K), node, K)
     win = facts["window"]
     spans = win["span_seconds"]
     log(f"  fs jsonlines ({N_CHUNKS} files, streaming) -> DocumentStore -> BruteForceKnnFactory("
@@ -1459,6 +1487,56 @@ def _rag_prompts(queries, docs_per_query) -> list[str]:
     return [by_i[i] for i in range(len(queries))]
 
 
+def _wait_until_served(client, server, t0: float, n_docs: int, probe: str, limit_s: float) -> dict:
+    """Poll a QA server (its engine's thread `server`, started at `t0`)
+    until /v1/statistics counts `n_docs` and /v1/retrieve finds the probe
+    doc at rank 1; the seconds to each."""
+    deadline = t0 + limit_s
+    count, shown = None, t0
+    while True:  # the routes register once the engine runs
+        check(server.is_alive(), "the QA server's engine stopped")
+        try:
+            count = client.statistics()["file_count"]
+            if count == n_docs:
+                break
+        except OSError:  # not yet listening, or 404 before the routes
+            pass
+        now = time.perf_counter()
+        check(now < deadline, f"the store did not count {n_docs} docs in {limit_s} s (last count {count})")
+        if now - shown > 30:  # a slow ingest shows its progress
+            log(f"  {now - t0:.0f} s after the start: /v1/statistics counts {count} of {n_docs} docs")
+            shown = now
+        time.sleep(0.05)
+    counted_s = time.perf_counter() - t0
+    top = client.retrieve(probe, k=1)
+    check(top and top[0]["text"] == probe, f"the probe for the last doc found {top}")
+    return {"counted_s": counted_s, "ready_s": time.perf_counter() - t0}
+
+
+def _ask_answers(client, queries, concurrent) -> dict:
+    """/v2/answer with return_context_docs for each of `queries` in turn
+    (their latencies in ms), then for all of `concurrent` at once."""
+    answers, lat = [], []
+    for q in queries:
+        tq = time.perf_counter()
+        answers.append(client.answer(q, return_context_docs=True))
+        lat.append((time.perf_counter() - tq) * 1000)
+    results: list = [None] * len(concurrent)
+
+    def one(i: int) -> None:
+        results[i] = client.answer(concurrent[i], return_context_docs=True)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(concurrent))]
+    tq = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    concurrent_s = time.perf_counter() - tq
+    check(all(not t.is_alive() for t in threads), "a concurrent answer did not return")
+    return {"answers": answers, "lat_ms": lat, "concurrent_s": concurrent_s, "concurrent": results}
+
+
 def _serve_rag(docs_path: str, n_docs: int, generator, queries, concurrent, probe: str,
                autocommit_ms: float | None = None) -> dict:
     """QASummaryRestServer over DocumentStore + HFPipelineChat on a free
@@ -1510,46 +1588,13 @@ def _serve_rag(docs_path: str, n_docs: int, generator, queries, concurrent, prob
         server.start()
     out: dict = {}
     try:
-        deadline = t0 + 300
-        while True:  # the routes register once the engine runs
-            check(server.is_alive(), "the QA server's engine stopped")
-            try:
-                if client.statistics()["file_count"] == n_docs:
-                    break
-            except OSError:  # not yet listening, or 404 before the routes
-                pass
-            check(time.perf_counter() < deadline, "the store did not count every doc in 300 s")
-            time.sleep(0.05)
-        out["counted_s"] = time.perf_counter() - t0
-        top = client.retrieve(probe, k=1)
-        check(top and top[0]["text"] == probe, f"the probe for the last doc found {top}")
-        out["ready_s"] = time.perf_counter() - t0
+        out.update(_wait_until_served(client, server, t0, n_docs, probe, 300.0))
         out["window"] = utilization.tracker().snapshot()  # the ingest's bound state
         after = health.controller().status()["actions"]
         out["throttles"] = after["throttle"] - actions["throttle"]
         out["relaxes"] = after["relax"] - actions["relax"]
         utilization.reset_window()  # the ingest's dispatches do not pace the requests
-
-        answers, lat = [], []
-        for q in queries:
-            tq = time.perf_counter()
-            answers.append(client.answer(q, return_context_docs=True))
-            lat.append((time.perf_counter() - tq) * 1000)
-        out["answers"], out["lat_ms"] = answers, lat
-        results: list = [None] * len(concurrent)
-
-        def one(i: int) -> None:
-            results[i] = client.answer(concurrent[i], return_context_docs=True)
-
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(concurrent))]
-        tq = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        out["concurrent_s"] = time.perf_counter() - tq
-        check(all(not t.is_alive() for t in threads), "a concurrent answer did not return")
-        out["concurrent"] = results
+        out.update(_ask_answers(client, queries, concurrent))
         tq = time.perf_counter()
         out["summary"] = client.summarize(queries[:3])
         out["summary_s"] = time.perf_counter() - tq
@@ -1623,12 +1668,44 @@ def _rerank(queries, candidates) -> dict:
     return out
 
 
+def probe_served_prefills(flash_attention, generator, prompts, batch, what: str) -> dict:
+    """flash at the served prefills' shapes, on each layer's own q / k / v,
+    held to phase 6's per-layer tolerance (`flash_probe`): each sequential
+    prompt at batch 1, as it was served, and the concurrent prompts as one
+    ragged batch, the largest the micro-batcher forms. Its launches come
+    after the served run's were read."""
+    from pathway_tpu_torch.models import decoder as decoder_module
+    from pathway_tpu_torch.models.decoder import generate_tokens
+
+    per_layer: list = []
+    probed = [[p] for p in prompts] + [batch]
+    with torch.no_grad(), decoder_attention(decoder_module, flash_probe(flash_attention, per_layer)):
+        for group in probed:
+            ids, mask = generator.encode_prompts(group, RAG_NEW_TOKENS)
+            check(int(mask.sum(1).min()) > 256, f"a probed prompt of {mask.sum(1)} tokens")
+            generate_tokens(generator.params, generator.config, ids, mask, max_new_tokens=1)
+    cos, err, tol, plain_err = check_probed_layers(
+        per_layer, len(probed) * generator.config.layers, what)
+    cfg = generator.config
+    return {"layers": len(per_layer), "n_prompts": len(prompts), "cos": cos, "err": err,
+            "tol": tol, "plain_err": plain_err,
+            "batch_shape": [len(batch), cfg.q_heads, int(ids.shape[1]), cfg.head_dim]}
+
+
+def log_probed_prefills(probe: dict, generator, lengths) -> None:
+    cfg = generator.config
+    log(f"  flash at the served prefills, each layer on its q / k / v ({probe['layers']} layers: "
+        f"{probe['n_prompts']} prompts at [1, {cfg.q_heads}, {min(lengths)}-{max(lengths)}, "
+        f"{cfg.head_dim}], the concurrent ones at {probe['batch_shape']}, causal, bf16): min "
+        f"row cosine to dense {probe['cos']:.6f}; max |err| against f32 attention "
+        f"{probe['err']:.3g} ({probe['tol']:.3f} of 2e-2 + 2^-6 |o|; dense: "
+        f"{probe['plain_err']:.3g})  ok")
+
+
 def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None = None) -> dict:
     """10a: the Private-RAG server at full width, every default on, and
     10b: the cross-encoder at full width, on the card against the CPU.
     `autocommit_ms`: see `_serve_rag`."""
-    from pathway_tpu_torch.models import decoder as decoder_module
-    from pathway_tpu_torch.models.decoder import generate_tokens
     from pathway_tpu_torch.models.decoder_lm import ChatModel
     from pathway_tpu_torch.ops.kernels import flash_attention
 
@@ -1666,21 +1743,8 @@ def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None 
               and len(r.get("context_docs", ())) == RAG_TOPK
               for r in served["concurrent"]), f"concurrent answers: {served['concurrent']}")
 
-    # flash at the served prefills' shapes, on each layer's own q / k / v,
-    # held to phase 6's per-layer tolerance (`flash_probe`): each
-    # sequential prompt at batch 1, as it was served, and the 8 concurrent
-    # prompts as one ragged batch, the largest the micro-batcher forms
     batch = _rag_prompts(concurrent, [r["context_docs"] for r in served["concurrent"]])
-    per_layer: list = []
-    probed = [[p] for p in prompts] + [batch]
-    with torch.no_grad(), decoder_attention(decoder_module, flash_probe(flash_attention, per_layer)):
-        for group in probed:
-            ids, mask = generator.encode_prompts(group, RAG_NEW_TOKENS)
-            check(int(mask.sum(1).min()) > 256, f"a probed prompt of {mask.sum(1)} tokens")
-            generate_tokens(generator.params, generator.config, ids, mask, max_new_tokens=1)
-    layer_cos, layer_err, layer_tol, plain_err = check_probed_layers(
-        per_layer, len(probed) * generator.config.layers, "RAG prefills")
-    batch_shape = [len(batch), generator.config.q_heads, ids.shape[1], generator.config.head_dim]
+    probe = probe_served_prefills(flash_attention, generator, prompts, batch, "RAG prefills")
     check(isinstance(served["summary"], dict) and isinstance(served["summary"].get("response"), str),
           f"summarize: {served['summary']}")
     check(len(served["listing"]) == n_docs, f"list_documents: {len(served['listing'])} entries")
@@ -1709,11 +1773,7 @@ def run_rag_server(card: str, n_docs: int = N_DOCS, autocommit_ms: float | None 
         f"1e-5; equal whole in {exact_docs}/{RAG_QUERIES}); every sequential answer = "
         f"generate([prompt], max_new_tokens={RAG_NEW_TOKENS}) on its prompt_qa + "
         f"prompt_chat_single_qa prompt  ok")
-    log(f"  flash at the served prefills, each layer on its q / k / v ({len(per_layer)} layers: "
-        f"{len(prompts)} prompts at [1, {generator.config.q_heads}, {min(lengths)}-{max(lengths)}, "
-        f"{generator.config.head_dim}], the concurrent ones at {batch_shape}, causal, bf16): min "
-        f"row cosine to dense {layer_cos:.6f}; max |err| against f32 attention {layer_err:.3g} "
-        f"({layer_tol:.3f} of 2e-2 + 2^-6 |o|; dense: {plain_err:.3g})  ok")
+    log_probed_prefills(probe, generator, lengths)
     served_launches = {"flash_attention": served["flash_launches"], "knn_topk": served["knn_launches"]}
     del generator, served["answers"]
     gc.collect()
@@ -2496,6 +2556,430 @@ def check_flash_gradients(flash_attention, reference_attention) -> dict:
     return worst
 
 
+# -- phase 14: the declarative path ---------------------------------------------
+
+# 14a: a team's document folder, one plaintext file a document
+N_QA_DOCS = 4096
+QA_WORDS = (300, 450)  # words a document; the splitter's min / max tokens
+# the decoder's cache: 6 context docs of up to 450 words and the template
+# fit whole, and the prefill (over 256 tokens) takes flash at head dim 128
+QA_DECODER_LEN = 4096
+# 14b: a fact table and its dimension table
+N_SQL_ROWS = 1_000_000
+N_SQL_USERS = 1000
+N_SQL_CATEGORIES = 40
+# pw.sql against sqlite3: exact for integers and strings, floats to 1e-9
+# relative (SUM and AVG add 25,000 amounts in another order)
+SQL_REL = 1e-9
+SQL_QUERIES = {
+    "group_by_having": (
+        "SELECT category, SUM(amount) AS total, COUNT(*) AS n, AVG(amount) AS mean "
+        "FROM sales GROUP BY category HAVING COUNT(*) > 100"
+    ),
+    "join_using": "SELECT region, tier, category, amount FROM sales JOIN users USING (user)",
+    "rank_over_partition": (
+        "SELECT user, ts, amount, RANK() OVER (PARTITION BY user ORDER BY amount DESC) AS r "
+        "FROM sales"
+    ),
+}
+# 14c
+N_REPLAY_ROWS = 20_000
+REPLAY_RATE = 1e6  # rows/s asked of pw.demo.replay_csv: it sleeps 1 / rate a row
+
+
+def _yaml_args(args: dict, indent: int) -> str:
+    return "".join(f"{' ' * indent}{k}: {v}\n" for k, v in args.items())
+
+
+def qa_app_yaml(docs_dir: str, port: int, *, embedder: dict, generator: dict,
+                reserved_space: int, dimensions: int, splitter: tuple = QA_WORDS,
+                search_topk: int = RAG_TOPK, max_new_tokens: int = RAG_NEW_TOKENS) -> str:
+    """The demo-question-answering template's app.yaml (Pathway's LLM app:
+    fs sources, parser, splitter, embedder, BruteForceKnnFactory,
+    DocumentStore, BaseRAGQuestionAnswerer, host and port), with the
+    port's local models in place of the template's hosted ones:
+    SentenceTransformerEmbedder(**embedder) and HFPipelineChat over
+    ChatModel.cached(**generator). A `device` entry in either dict places
+    that model; tests/test_torch_yaml.py loads the same text at a small
+    size in both packages."""
+    return (
+        "$sources:\n"
+        "  - !pw.io.fs.read\n"
+        f"    path: {json.dumps(docs_dir)}\n"
+        "    format: binary\n"
+        "    with_metadata: true\n"
+        "\n"
+        "$parser: !pw.xpacks.llm.parsers.Utf8Parser\n"
+        "\n"
+        "$splitter: !pw.xpacks.llm.splitters.TokenCountSplitter\n"
+        f"  min_tokens: {splitter[0]}\n"
+        f"  max_tokens: {splitter[1]}\n"
+        "\n"
+        "$embedder: !pw.xpacks.llm.embedders.SentenceTransformerEmbedder\n"
+        + _yaml_args(embedder, 2)
+        + "\n"
+        "$retriever_factory: !pw.stdlib.indexing.BruteForceKnnFactory\n"
+        f"  reserved_space: {reserved_space}\n"
+        "  embedder: $embedder\n"
+        f"  dimensions: {dimensions}\n"
+        "\n"
+        "$llm: !pw.xpacks.llm.llms.HFPipelineChat\n"
+        f"  model: {generator['model']}\n"
+        f"  max_new_tokens: {max_new_tokens}\n"
+        "  generator: !pw.models.decoder_lm.ChatModel.cached\n"
+        + _yaml_args(generator, 4)
+        + "\n"
+        "$document_store: !pw.xpacks.llm.document_store.DocumentStore\n"
+        "  docs: $sources\n"
+        "  parser: $parser\n"
+        "  splitter: $splitter\n"
+        "  retriever_factory: $retriever_factory\n"
+        "\n"
+        "question_answerer: !pw.xpacks.llm.question_answering.BaseRAGQuestionAnswerer\n"
+        "  llm: $llm\n"
+        "  indexer: $document_store\n"
+        f"  search_topk: {search_topk}\n"
+        "\n"
+        "host: 127.0.0.1\n"
+        f"port: {port}\n"
+    )
+
+
+def write_text_docs(docs, directory: str) -> None:
+    """One plaintext file a document, as a document folder holds them."""
+    os.makedirs(directory)
+    for i, d in enumerate(docs):
+        with open(os.path.join(directory, f"doc_{i:05d}.txt"), "w") as fh:
+            fh.write(d)
+
+
+def qa_docs(n: int, rng: random.Random, words: tuple = QA_WORDS) -> list[str]:
+    """Documents of words[0]..words[1] random words and an id."""
+    return [" ".join(rng.choices(_WORDS, k=rng.randint(*words))) + f" doc{i}" for i in range(n)]
+
+
+def serve_declared_app(config: dict, n_docs: int, queries, concurrent, probe: str,
+                       retrieve_k: int = RAG_TOPK) -> dict:
+    """The app that load_yaml built, served as its template's app.py
+    serves it: question_answerer.build_server(host, port), then
+    run_server(threaded=True); driven by RAGClient. Waits for
+    /v1/statistics to count every doc and the probe to find its doc, then
+    sends the sequential and the concurrent /v2/answer (with
+    return_context_docs) and /v1/retrieve for each sequential query. The
+    index's search_texts answers the same queries before the engine
+    stops."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.ops.kernels import flash_attention, knn_topk
+    from pathway_tpu_torch.xpacks.llm.question_answering import RAGClient
+
+    qa = config["question_answerer"]
+    qa.build_server(config["host"], config["port"])
+    client = RAGClient(config["host"], config["port"], timeout=300)
+    t0 = time.perf_counter()
+    server = qa.run_server(threaded=True)
+    out: dict = {}
+    try:
+        out.update(_wait_until_served(client, server, t0, n_docs, probe, 600.0))
+        out.update(_ask_answers(client, queries, concurrent))
+        out["retrieve"] = [client.retrieve(q, k=retrieve_k) for q in queries]
+        # the kernels the served requests launched, before any check
+        out["flash_launches"] = dict(flash_attention.launches_by_instance)
+        out["knn_launches"] = knn_topk.launches
+        from pathway_tpu_torch.engine.index_node import ExternalIndexNode
+
+        # one index node for each route that searches (answer, retrieve, ...)
+        nodes = [n for n in pw_runner.last_engine().nodes if isinstance(n, ExternalIndexNode)]
+        # each searching route (/v1/pw_ai_answer, /v2/answer, /v1/retrieve)
+        # builds an index of its own over the same chunks, as in the JAX
+        # package; they hold the same rows from the same encoder
+        check(all(len(n.index.knn) == len(nodes[0].index.knn) > 0 for n in nodes),
+              f"index rows: {[len(n.index.knn) for n in nodes]}")
+        # each index ingested through its DevicePipeline, which an error on
+        # the card (e.g. out of memory) would have disabled
+        stats = [n.index._pipeline.stats() if n.index._pipeline is not None else {}
+                 for n in nodes]
+        check(all(not n.index._pipeline_broken for n in nodes)
+              and all(st.get("dispatched", 0) > 0 for st in stats),
+              f"an index's DevicePipeline broke or ran no batch: {stats}")
+        out["index_nodes"] = len(nodes)
+        out["dispatches"] = [st["dispatched"] for st in stats]
+        out["direct"] = nodes[0].index.fused.search_texts(list(queries), retrieve_k)
+        out["node"] = nodes[0]
+    finally:
+        engine = pw_runner.last_engine()
+        if engine is not None:
+            engine.terminate_flag.set()
+        server.join(timeout=60)
+        pw.G.clear()
+    check(not server.is_alive(), "the app's engine did not stop")
+    return out
+
+
+def run_declarative_app(card: str, n_docs: int = N_QA_DOCS, device=None) -> dict:
+    """14a: the demo-question-answering template declared in YAML
+    (qa_app_yaml) at full width on the card, loaded by pw.load_yaml and
+    served over REST. Each sequential answer against generate() on the
+    prompt the app built, each answer's context against /v1/retrieve,
+    /v1/retrieve against the index's search_texts; flash at D = 32 (the
+    encoder over chunks of 300-450 tokens) and D = 128 (the prefills).
+    `device="cpu"` rehearses the phase with the manifest's `device: cpu`
+    lines, the tiny decoder, documents of 20-30 words and k = 2."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import utilization
+    from pathway_tpu_torch.models import decoder_lm
+    from pathway_tpu_torch.ops.kernels import flash_attention, knn_topk
+
+    on_card = device is None
+    words, topk = (QA_WORDS, RAG_TOPK) if on_card else ((20, 30), 2)
+    embedder_args = {"model": "all-MiniLM-L6-v2", "max_len": 512}
+    generator_args = ({"model": "mistral-7b", "max_len": QA_DECODER_LEN} if on_card
+                      else {"model": "tiny-decoder", "max_len": 128})
+    if not on_card:
+        embedder_args["device"] = generator_args["device"] = device
+    t_phase = time.perf_counter()
+    _collect_earlier_phases()  # the engines and models of the phases before
+    docs = qa_docs(n_docs, random.Random(31), words)
+    queries = make_prompts(RAG_QUERIES, random.Random(37), 8, 16)
+    concurrent = make_prompts(RAG_QUERIES, random.Random(41), 8, 16)
+    cached_before = len(decoder_lm._model_cache)
+    with tempfile.TemporaryDirectory() as tmp:
+        docs_dir = os.path.join(tmp, "documents")
+        write_text_docs(docs, docs_dir)
+        text = qa_app_yaml(docs_dir, _free_port(), embedder=embedder_args,
+                           generator=generator_args, reserved_space=n_docs, dimensions=DIM,
+                           splitter=words, search_topk=topk)
+        t_load = time.perf_counter()
+        config = pw.load_yaml(text)
+        load_s = time.perf_counter() - t_load
+        qa = config["question_answerer"]
+        generator = qa.llm.generator
+        embedder = qa.indexer.retriever_factory.embedder
+        want = "cuda" if on_card else device
+        check(generator.device.type == want and embedder.encoder.device.type == want,
+              f"the manifest's models are not on {want}")
+        check(len(decoder_lm._model_cache) == cached_before + 1,
+              "the manifest's ChatModel.cached did not build a model of its own")
+        check(not on_card or (generator.config.hidden == 4096 and generator.config.layers == 32),
+              "the manifest's decoder is not at full width")
+        check(embedder.encoder.config.hidden == DIM and embedder.encoder.max_len == 512,
+              "the manifest's encoder is not MiniLM-L6 at max_len 512")
+        knn_topk.launches = 0
+        flash_attention.launches = 0
+        flash_attention.launches_by_instance = {}
+        # the window scoped to this run, as 9a, 10 and 13b scope theirs
+        utilization.reset_window()
+        served = serve_declared_app(config, n_docs, queries, concurrent, docs[-1], topk)
+    launches = {"flash_attention": sum(served["flash_launches"].values()),
+                "knn_topk": served["knn_launches"], "by_instance": served["flash_launches"]}
+    served_s = time.perf_counter() - t_phase
+
+    for q, ans, ret in zip(queries, served["answers"], served["retrieve"]):
+        ctx = ans["context_docs"]
+        check([d["text"] for d in ctx] == [d["text"] for d in ret] and len(ctx) == topk,
+              f"query {q!r}: context docs differ from /v1/retrieve's top {topk}")
+    exact, drift, tie_tol = agrees_with_search_texts(
+        served["retrieve"], served["direct"], served["node"], topk)
+    prompts = _rag_prompts(queries, [a["context_docs"] for a in served["answers"]])
+    lengths = [int(generator.encode_prompts([p], RAG_NEW_TOKENS)[1].sum()) for p in prompts]
+    check(max(lengths) <= generator.max_len - RAG_NEW_TOKENS, f"prompts of {lengths} tokens were cut")
+    for q, p, ans in zip(queries, prompts, served["answers"]):
+        direct = generator.generate([p], max_new_tokens=RAG_NEW_TOKENS)[0]
+        check(isinstance(ans["response"], str) and ans["response"] == direct,
+              f"query {q!r}: the served answer differs from generate() on its prompt")
+    # (the tiny decoder's replies decode to '': at its init it repeats the
+    # prompt's reserved last token)
+    check(all(isinstance(r, dict) and isinstance(r.get("response"), str)
+              and (r["response"] or not on_card) and len(r.get("context_docs", ())) == topk
+              for r in served["concurrent"]), f"concurrent answers: {served['concurrent']}")
+    by_instance = launches["by_instance"]
+    if on_card:
+        check(by_instance.get("bf16<32>", 0) > 0,
+              f"the encoder launched no flash at D = 32: {by_instance}")
+        check(by_instance.get("bf16<128>", 0) > 0,
+              f"the prefills launched no flash at D = 128: {by_instance}")
+        # the kernel at the lengths these prompts reach (phase 6 holds it
+        # at 700-1,000 words, phase 3 at L = 1024)
+        batch = _rag_prompts(concurrent, [r["context_docs"] for r in served["concurrent"]])
+        probe = probe_served_prefills(flash_attention, generator, prompts, batch,
+                                      "the app's prefills")
+    lat = served["lat_ms"]
+    log(f"  pw.load_yaml (PyYAML) of the demo-question-answering app.yaml in {load_s:.1f} s (it "
+        f"builds ChatModel.cached({generator_args}) anew, random weights, and MiniLM-L6 at max_len "
+        f"512): {n_docs} plaintext docs of {words[0]}-{words[1]} words -> fs.read(binary, "
+        f"with_metadata) -> Utf8Parser -> TokenCountSplitter({words[0]}, {words[1]}) -> "
+        f"SentenceTransformerEmbedder -> BruteForceKnnFactory -> DocumentStore -> "
+        f"BaseRAGQuestionAnswerer(HFPipelineChat({generator_args['model']})), build_server + "
+        f"run_server(threaded=True): store ready {served['ready_s']:.3f} s (every doc counted at "
+        f"{served['counted_s']:.3f} s), {n_docs / served['ready_s']:.1f} docs/s indexed [{card}]")
+    log(f"  {RAG_QUERIES} sequential /v2/answer (k = {topk}, prompts of {min(lengths)}-"
+        f"{max(lengths)} tokens): p50 {np.percentile(lat, 50):.1f} ms, p90 "
+        f"{np.percentile(lat, 90):.1f} ms (n = {len(lat)}), max {max(lat):.1f} ms; "
+        f"{RAG_QUERIES} concurrent in {served['concurrent_s']:.3f} s wall; {served['index_nodes']} "
+        f"index nodes (one for each searching route, each over every chunk; DevicePipeline "
+        f"batches {served['dispatches']}); flash launches by "
+        f"instance {json.dumps(by_instance, sort_keys=True)}, knn_topk {launches['knn_topk']} [{card}]")
+    log(f"  every answer's context_docs = /v1/retrieve's top {topk}; /v1/retrieve against "
+        f"search_texts on the index: top-{topk} equal in order in {exact}/{len(queries)}, the "
+        f"rest within near-ties of {tie_tol:.3g} (largest score drift {drift:.3g}); every "
+        f"sequential answer = generate([prompt], max_new_tokens={RAG_NEW_TOKENS})  ok")
+    if on_card:
+        log_probed_prefills(probe, generator, lengths)
+    del config, qa, generator, embedder, served
+    _collect_earlier_phases()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 14a wall {phase_s:.1f} s (served {served_s:.1f} s)")
+    return {"launches": launches, "p50_ms": float(np.percentile(lat, 50)), "phase_s": phase_s}
+
+
+def make_sales_db(path: str, n_sales: int, n_users: int, n_categories: int, seed: int = 0) -> None:
+    """The fact table `sales (id INTEGER PRIMARY KEY, user TEXT, category
+    TEXT, amount REAL, ts INTEGER)` and the dimension table `users (user
+    TEXT PRIMARY KEY, region TEXT, tier INTEGER)`, drawn by numpy's
+    generator from `seed`."""
+    import sqlite3
+
+    rng = np.random.default_rng(seed)
+    users = [f"u{i:05d}" for i in range(n_users)]
+    cats = [f"c{i:02d}" for i in range(n_categories)]
+    u = rng.integers(0, n_users, n_sales).tolist()
+    c = rng.integers(0, n_categories, n_sales).tolist()
+    amount = np.round(rng.random(n_sales) * 1000.0, 2).tolist()
+    ts = rng.integers(0, 10**9, n_sales).tolist()
+    con = sqlite3.connect(path)
+    con.execute(
+        "CREATE TABLE sales (id INTEGER PRIMARY KEY, user TEXT, category TEXT, "
+        "amount REAL, ts INTEGER)"
+    )
+    con.execute("CREATE TABLE users (user TEXT PRIMARY KEY, region TEXT, tier INTEGER)")
+    con.executemany(
+        "INSERT INTO sales VALUES (?, ?, ?, ?, ?)",
+        zip(range(1, n_sales + 1), (users[i] for i in u), (cats[i] for i in c), amount, ts),
+    )
+    con.executemany(
+        "INSERT INTO users VALUES (?, ?, ?)",
+        ((users[i], f"r{i % 7}", i % 3) for i in range(n_users)),
+    )
+    con.commit()
+    con.close()
+
+
+def sqlite_tables(pw, path: str) -> dict:
+    """`sales` and `users` read by pw.io.sqlite.read in static mode."""
+
+    class Sales(pw.Schema, primary_key=["id"]):
+        id: int
+        user: str
+        category: str
+        amount: float
+        ts: int
+
+    class Users(pw.Schema, primary_key=["user"]):
+        user: str
+        region: str
+        tier: int
+
+    return {
+        "sales": pw.io.sqlite.read(path, "sales", Sales, mode="static"),
+        "users": pw.io.sqlite.read(path, "users", Users, mode="static"),
+    }
+
+
+def rows_agree(got, want, rel: float = SQL_REL) -> bool:
+    """Two sorted row lists: equal, floats within `rel` relative."""
+    def same(a, b) -> bool:
+        if isinstance(a, float) or isinstance(b, float):
+            return math.isclose(a, b, rel_tol=rel, abs_tol=0.0)
+        return type(a) is type(b) and a == b
+
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(map(same, g, w)) for g, w in zip(got, want))
+
+
+def run_sql_on_sqlite(card: str, n_rows: int = N_SQL_ROWS) -> dict:
+    """14b: pw.sql over pw.io.sqlite.read: a GROUP BY ... HAVING, a
+    JOIN ... USING and a RANK() OVER (PARTITION BY ... ORDER BY ...) over
+    the same two tables in one run, each result against sqlite3 running
+    the same SQL on the same file."""
+    import sqlite3
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.runner import run_tables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sales.db")
+        t0 = time.perf_counter()
+        make_sales_db(path, n_rows, N_SQL_USERS, N_SQL_CATEGORIES)
+        made_s = time.perf_counter() - t0
+        pw.G.clear()
+        tables = sqlite_tables(pw, path)
+        results = [pw.sql(q, **tables) for q in SQL_QUERIES.values()]
+        t0 = time.perf_counter()
+        caps = run_tables(*results)
+        run_s = time.perf_counter() - t0
+        pw.G.clear()
+        con = sqlite3.connect(path)
+        for (name, q), cap in zip(SQL_QUERIES.items(), caps):
+            t1 = time.perf_counter()
+            want = sorted(con.execute(q).fetchall())
+            ref_s = time.perf_counter() - t1
+            got = sorted(cap.state.rows.values())
+            check(rows_agree(got, want), f"{name}: pw.sql's {len(got)} rows differ from sqlite3's "
+                                         f"{len(want)} ({got[:2]} vs {want[:2]})")
+            log(f"  {name}: {len(got)} rows = sqlite3's (sqlite3 took {ref_s:.2f} s)  ok")
+        con.close()
+    log(f"  pw.io.sqlite.read(static) of {n_rows} sales rows and {N_SQL_USERS} users -> pw.sql "
+        f"({', '.join(SQL_QUERIES)}) in one run: {run_s:.2f} s, {n_rows / run_s:.1f} rows/s "
+        f"(the file written in {made_s:.1f} s) [{card}]")
+    return {"rows_per_s": n_rows / run_s}
+
+
+def run_demo_replay(card: str, n_rows: int = N_REPLAY_ROWS) -> dict:
+    """14c: pw.demo.replay_csv at REPLAY_RATE rows/s -> groupby(key)
+    .reduce(count, sum) -> pw.io.subscribe, the final groups against
+    plain Python."""
+    import csv
+
+    import pathway_tpu_torch as pw
+
+    rng = random.Random(43)
+    rows = [(f"k{rng.randrange(64)}", rng.randrange(1000)) for _ in range(n_rows)]
+    want: dict = {}
+    for k, v in rows:
+        n, s = want.get(k, (0, 0))
+        want[k] = (n + 1, s + v)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "replay.csv")
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["key", "value"])
+            w.writerows(rows)
+        pw.G.clear()
+        t = pw.demo.replay_csv(path, schema=pw.schema_from_types(key=str, value=int),
+                               input_rate=REPLAY_RATE)
+        groups = t.groupby(pw.this.key).reduce(
+            key=pw.this.key, n=pw.reducers.count(), total=pw.reducers.sum(pw.this.value))
+        state: dict = {}
+
+        def on_change(key, row, time, is_addition):  # noqa: A002
+            if is_addition:
+                state[row["key"]] = (row["n"], row["total"])
+            elif state.get(row["key"]) == (row["n"], row["total"]):
+                del state[row["key"]]
+
+        pw.io.subscribe(groups, on_change=on_change)
+        t0 = time.perf_counter()
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+        elapsed = time.perf_counter() - t0
+        pw.G.clear()
+    check(state == want, f"replay groups: {len(state)} of {len(want)} equal "
+                         f"{sum(state.get(k) == v for k, v in want.items())}")
+    log(f"  pw.demo.replay_csv({n_rows} rows, input_rate={REPLAY_RATE:g}) -> groupby(key).reduce("
+        f"count, sum) -> subscribe: {elapsed:.2f} s, {n_rows / elapsed:.1f} rows/s, "
+        f"{len(want)} groups = plain Python  ok [{card}]")
+    return {"rows_per_s": n_rows / elapsed}
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -2753,7 +3237,29 @@ def main() -> int:
         f"the classifier's index), flash_attention {flash_attention.launches}; phase 12 "
         f"{time.perf_counter() - t_phase:.1f} s")
 
-    # phase 13 runs after 12 and before 8, as 9 does: the wordcount's
+    # phase 14 runs after 12 and before 13 and 8
+    log("[14a] the demo-question-answering app declared in YAML, served on the card, before phase 8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    declarative = run_declarative_app(card)["launches"]
+    knn_row["launches_by_path"]["declarative"] = declarative["knn_topk"]
+    flash_row["launches_by_path"]["declarative"] = declarative["flash_attention"]
+    flash_row["declarative_by_instance"] = declarative["by_instance"]
+    log(f"  launches on the declarative app's path: flash_attention {declarative['flash_attention']} "
+        f"({json.dumps(declarative['by_instance'], sort_keys=True)}: the encoder over chunks of "
+        f"300-450 tokens at D = 32, the 7B prefills at D = 128), knn_topk {declarative['knn_topk']} "
+        f"(the fused search is dense similarity + top-k)")
+    for name, fn in (("[14b] pw.sql over the sqlite connector", run_sql_on_sqlite),
+                     ("[14c] pw.demo.replay_csv through a groupby", run_demo_replay)):
+        log(name)
+        knn_topk.launches = 0
+        flash_attention.launches = 0
+        fn(card)
+        check(knn_topk.launches == 0 and flash_attention.launches == 0, f"{name} launched a kernel")
+    log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s; 14b and 14c launched no kernel (host only)")
+
+    # phase 13 runs after 14 and before 8, as 9 does: the wordcount's
     # engine is not to weigh on it
     log("[13] operability on the card: the capacity plan, the profiler, the cli, before phase 8")
     knn_topk.launches = 0

@@ -29,6 +29,15 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
     and the cli (`pathway-tpu-torch`, or `python -m pathway_tpu_torch.cli`:
     analyze, trace, status, top, profile, restart, explain, spawn,
     airbyte);
+  * the declarative and host-only surface, copied from the JAX package:
+    `pw.load_yaml` (internals/yaml_loader.py: an app manifest whose
+    `!pw.` tags build this package's objects), `pw.sql`
+    (internals/sql.py), `pw.demo` (synthetic and replayed streams) and
+    every connector of `pw.io` (sqlite, postgres, kafka / redpanda,
+    debezium, nats, mqtt, minio, deltalake, iceberg, mongodb, dynamodb,
+    elasticsearch, questdb, bigquery, pubsub, logstash, slack, gdrive,
+    pyfilesystem, with the helpers _writer, _mq, _avro and _lake_fs);
+    a connector's client library is imported when it is used;
   * the MiniLM-class encoder, the cross-encoder and the decoder
     (models/), the device KNN
     index and the fused embed+search object (ops/knn.py), and
@@ -49,9 +58,9 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-Not ported yet: `pw.sql`, `pw.load_yaml`, `pw.demo`, the connectors
-other than fs / csv / jsonlines / plaintext / python / null / s3 / http /
-airbyte, training and the device mesh.
+Not ported yet: training (models/training.py) and the device mesh
+(parallel/, models/long_context.py, the device half of
+internals/mesh_backend.py).
 """
 
 from __future__ import annotations
@@ -223,6 +232,14 @@ def __getattr__(name):
         import pathway_tpu_torch.persistence as p
 
         return p
+    if name == "demo":
+        import pathway_tpu_torch.demo as d
+
+        return d
+    if name == "sql":
+        from pathway_tpu_torch.internals.sql import sql as s
+
+        return s
     if name == "graphs":
         from pathway_tpu_torch.stdlib import graphs as g
 
@@ -235,6 +252,11 @@ def __getattr__(name):
         from pathway_tpu_torch.internals.monitoring import MonitoringLevel as m
 
         return m
+    if name == "load_yaml":
+        # lazy: keeps PyYAML an optional dependency
+        from pathway_tpu_torch.internals.yaml_loader import load_yaml as ly
+
+        return ly
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -541,7 +541,7 @@ class DeviceTimePartitioner:
 
 
 class ServingTier:
-    """Process-wide serving state: per-route micro-batchers, the
+    """Process-wide serving state: the REST connectors' micro-batchers, the
     admission controller, the result cache, the partitioner, and their
     metrics."""
 
@@ -559,7 +559,11 @@ class ServingTier:
         self.partitioner = DeviceTimePartitioner()
         self.recorder = FlightRecorder(capacity=64)
         self._lock = threading.Lock()
-        self._batchers: Dict[str, MicroBatcher] = {}
+        # the live REST connectors' batchers, and the counts of those
+        # whose connector's run has ended
+        self._batchers: List[MicroBatcher] = []
+        self._retired_flushes = 0
+        self._retired_items = 0
         self.occupancy = Digest()
         self.batch_wait_ms = Digest()
 
@@ -573,9 +577,7 @@ class ServingTier:
         reg.counter(
             "pathway_serving_batches_total",
             help="Serving micro-batches flushed into the engine",
-            callback=lambda: sum(
-                b.flushes for b in self._batchers.values()
-            ),
+            callback=lambda: self._flush_counts()[0],
         )
         reg.counter(
             "pathway_serving_shed_total",
@@ -626,19 +628,40 @@ class ServingTier:
     def batcher(
         self, name: str, flush_fn: Callable[[List[Any]], None]
     ) -> MicroBatcher:
-        """Get-or-create the micro-batcher for a REST route.  One flush
-        thread per route keeps commits serialized per connector."""
+        """A new micro-batcher for one REST connector's run (`name` is
+        its route).  Its flush thread keeps the connector's commits
+        serialized; the connector hands it back to `retire` when its
+        run ends."""
+        b = MicroBatcher(
+            flush_fn,
+            window_ms=self.window_ms,
+            max_batch=self.max_batch,
+            name=f"serve-batch:{name}",
+            on_flush=self._note_flush,
+        )
         with self._lock:
-            b = self._batchers.get(name)
-            if b is None:
-                b = self._batchers[name] = MicroBatcher(
-                    flush_fn,
-                    window_ms=self.window_ms,
-                    max_batch=self.max_batch,
-                    name=f"serve-batch:{name}",
-                    on_flush=self._note_flush,
-                )
-            return b
+            self._batchers.append(b)
+        return b
+
+    def retire(self, b: MicroBatcher) -> None:
+        """Close a batcher whose connector's run has ended (its thread
+        exits, and it lets go of the connector); its flushes stay
+        counted."""
+        b.close()
+        with self._lock:
+            if b in self._batchers:
+                self._batchers.remove(b)
+                self._retired_flushes += b.flushes
+                self._retired_items += b.flushed_items
+
+    def _flush_counts(self) -> Tuple[int, int]:
+        """(batches flushed, queries in them), retired batchers included."""
+        with self._lock:
+            return (
+                self._retired_flushes + sum(b.flushes for b in self._batchers),
+                self._retired_items
+                + sum(b.flushed_items for b in self._batchers),
+            )
 
     def _note_flush(self, occupancy: int, waited_ms: float) -> None:
         self.occupancy.observe(float(occupancy))
@@ -717,15 +740,13 @@ class ServingTier:
 
     def close(self) -> None:
         with self._lock:
-            batchers = list(self._batchers.values())
-            self._batchers.clear()
+            batchers, self._batchers = self._batchers, []
         for b in batchers:
             b.close()
         self.partitioner.release_for_tests()
 
     def status(self) -> Dict[str, Any]:
-        flushes = sum(b.flushes for b in self._batchers.values())
-        flushed = sum(b.flushed_items for b in self._batchers.values())
+        flushes, flushed = self._flush_counts()
         return {
             "enabled": True,
             "batch_window_ms": self.window_ms,

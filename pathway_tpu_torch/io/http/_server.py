@@ -229,6 +229,11 @@ class _RestSubject(ConnectorSubjectBase):
         # path, delete-completed), and from the serving batcher's flush
         # thread — one lock keeps each commit an atomic engine batch
         self._emit_lock = threading.Lock()
+        # this run's serving micro-batcher and the tier that made it
+        self._batcher_lock = threading.Lock()
+        self._batcher_tier = None
+        self._batcher = None
+        self._run_ended = False
 
     def run(self) -> None:
         names = list(self.schema.keys())
@@ -279,13 +284,16 @@ class _RestSubject(ConnectorSubjectBase):
                         row[name] = None
                 fut = self.webserver._register_pending(key)
                 self._payloads[key] = row
-                if tier is not None and tier.window_ms > 0:
+                batcher = (
+                    self._batcher_in(tier)
+                    if tier is not None and tier.window_ms > 0
+                    else None
+                )
+                if batcher is not None:
                     # park on the micro-batcher: concurrent requests
                     # coalesce under ONE commit → one engine batch →
                     # one fused device dispatch for the whole flush
-                    tier.batcher(self.route, self._flush_batch).submit(
-                        (key, row)
-                    )
+                    batcher.submit((key, row))
                 else:
                     with self._emit_lock:
                         self.next(**row, _pw_key=key)
@@ -310,8 +318,28 @@ class _RestSubject(ConnectorSubjectBase):
             self.route, self.methods, handler, self.documentation
         )
         self.webserver._ensure_started()
-        # block forever: requests arrive via the aiohttp loop
-        threading.Event().wait()
+        # requests arrive via the aiohttp loop until the run ends
+        while not self._wait_for_run_end(60.0):
+            pass
+        with self._batcher_lock:
+            self._run_ended = True
+            tier, batcher = self._batcher_tier, self._batcher
+            self._batcher_tier = self._batcher = None
+        if batcher is not None:
+            tier.retire(batcher)
+
+    def _batcher_in(self, tier):
+        """This run's micro-batcher, made in `tier` at the first request
+        that it parks (and made anew if the tier was reset).  It is the
+        connector's own and retired when the run ends: a batcher shared
+        by the route would outlive the run, and a later run's server on
+        the route would park its requests on this ended connector.  None
+        once the run has ended."""
+        with self._batcher_lock:
+            if self._batcher_tier is not tier and not self._run_ended:
+                self._batcher_tier = tier
+                self._batcher = tier.batcher(self.route, self._flush_batch)
+            return self._batcher
 
     def _flush_batch(self, items) -> None:
         """Serving-batcher flush: push every parked (key, row) and commit

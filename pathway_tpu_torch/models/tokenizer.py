@@ -228,6 +228,17 @@ def encode_batch(
         ]
     else:
         encoded = [tokenizer.encode(t, max_len) for t in texts]
+    return pad_encoded(tokenizer, encoded, max_len=max_len, batch_bucket=batch_bucket)
+
+
+def pad_encoded(
+    tokenizer,
+    encoded: Sequence[Sequence[int]],
+    *,
+    max_len: int = 512,
+    batch_bucket: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """encode_batch's (ids, mask) for texts already tokenized."""
     longest = max((len(e) for e in encoded), default=1)
     seq_len = seq_bucket_length(longest, maximum=max_len)
     batch = len(encoded)
@@ -250,7 +261,10 @@ def pack_token_budget(default: int = 256) -> int:
     """Slab length for packed ragged batching (PATHWAY_PACK_TOKEN_BUDGET,
     read per call like PATHWAY_INGEST_CHUNK). 0 disables packing and the
     ingest path falls back to the classic one-doc-per-row bucketed
-    encode."""
+    encode. On the card, a batch that holds a doc longer than the flash
+    gate (models/transformer.FLASH_MIN_LEN tokens) takes the classic
+    encode whatever the budget: its masked attention runs the flash
+    kernel, where packed slabs attend densely."""
     raw = os.environ.get("PATHWAY_PACK_TOKEN_BUDGET", "")
     if not raw:
         return default
@@ -284,6 +298,26 @@ def pack_batch(
     mesh-sharded, so the power-of-two batch contract does not apply.
     """
     encoded = [tokenizer.encode(t, max_len) for t in texts]
+    return pack_encoded(
+        tokenizer,
+        encoded,
+        max_len=max_len,
+        token_budget=token_budget,
+        max_segments=max_segments,
+        row_bucket=row_bucket,
+    )
+
+
+def pack_encoded(
+    tokenizer,
+    encoded: Sequence[Sequence[int]],
+    *,
+    max_len: int = 512,
+    token_budget: int = 256,
+    max_segments: int = PACK_MAX_SEGMENTS,
+    row_bucket: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, List[Tuple[int, int]]]:
+    """pack_batch for texts already tokenized."""
     longest = max((len(e) for e in encoded), default=1)
     slab = max(1, int(token_budget))
     if longest > slab:

@@ -136,13 +136,17 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return (out * scale + bias).to(x.dtype)
 
 
+# attention over more keys than this takes the flash kernel on the card,
+# where dense attention's O(L^2) scores hurt
+FLASH_MIN_LEN = 256
+
+
 def _attention(q, k, v, mask, causal: bool, use_flash):
     """Flash kernel or dense attention. q,k,v: [B,H,L,D]; mask: [B,L].
-    By default flash runs on the card for L > 256, where the O(L^2)
-    scores hurt; `use_flash=True` on the CPU takes the kernel's plain
-    version through the same wrapper."""
+    By default flash runs on the card for L > FLASH_MIN_LEN; `use_flash=True`
+    on the CPU takes the kernel's plain version through the same wrapper."""
     if use_flash is None:
-        use_flash = q.is_cuda and q.shape[2] > 256
+        use_flash = q.is_cuda and q.shape[2] > FLASH_MIN_LEN
     if use_flash:
         return flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), mask, causal=causal

@@ -127,6 +127,10 @@ def _launch(q, k, v, kv_mask, sm_scale: float, causal: bool):
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    instance = f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'}<{d_pad}>"
+    flash_attention.launches_by_instance[instance] = (
+        flash_attention.launches_by_instance.get(instance, 0) + 1
+    )
     return out if d_pad == d else out[..., :d].contiguous()
 
 
@@ -151,3 +155,5 @@ class _FlashAttention(torch.autograd.Function):
 
 
 flash_attention.launches = 0
+# the same launches by kernel instance: "bf16<32>", "f32<256>", ...
+flash_attention.launches_by_instance = {}

@@ -34,9 +34,11 @@ from pathway_tpu_torch.models.tokenizer import (
     PACK_MAX_SEGMENTS,
     encode_batch,
     pack_batch,
+    pack_encoded,
     pack_token_budget,
+    pad_encoded,
 )
-from pathway_tpu_torch.models.transformer import forward
+from pathway_tpu_torch.models.transformer import FLASH_MIN_LEN, forward
 from pathway_tpu_torch.ops.kernels.knn_topk import METRICS, knn_topk, next_pow2
 
 _KERNEL_MAX_K = 128
@@ -372,24 +374,34 @@ class FusedEmbedSearch:
         """Host-side PREPARE stage: tokenize, packing into token-budget
         slabs when enabled. Returns (payload, meta); payload is consumed by
         dispatch_batch, meta carries rows / real-token / slab-token /
-        slab-byte accounting."""
+        slab-byte accounting. On the card, a batch that holds a doc longer
+        than FLASH_MIN_LEN tokens takes the classic path: packed slabs
+        attend densely within their segments, [rows, heads, L, L] scores,
+        where the classic path's masked attention takes the flash kernel.
+        The texts are tokenized once for either path."""
         texts = list(texts)
         keys = list(keys)
         budget = pack_token_budget() if pack else 0
+        tokenizer, max_len = self.encoder.tokenizer, self.encoder.max_len
         if budget > 0 and texts:
-            ids, seg, slots = pack_batch(
-                self.encoder.tokenizer,
-                texts,
-                max_len=self.encoder.max_len,
-                token_budget=budget,
-                max_segments=PACK_MAX_SEGMENTS,
-            )
-            payload = ("packed", keys, ids, seg, slots)
-            real, total = int(np.count_nonzero(seg)), int(seg.size)
+            encoded = [tokenizer.encode(t, max_len) for t in texts]
+            if self.device.type == "cuda" and max(map(len, encoded)) > FLASH_MIN_LEN:
+                ids, mask = pad_encoded(tokenizer, encoded, max_len=max_len)
+                payload = ("classic", keys, ids, mask, None)
+            else:
+                ids, seg, slots = pack_encoded(
+                    tokenizer,
+                    encoded,
+                    max_len=max_len,
+                    token_budget=budget,
+                    max_segments=PACK_MAX_SEGMENTS,
+                )
+                payload = ("packed", keys, ids, seg, slots)
         else:
-            ids, mask = encode_batch(self.encoder.tokenizer, texts, max_len=self.encoder.max_len)
+            ids, mask = encode_batch(tokenizer, texts, max_len=max_len)
             payload = ("classic", keys, ids, mask, None)
-            real, total = int(np.asarray(mask).sum()), int(mask.size)
+        # real tokens: the nonzero entries of the segment ids or the mask
+        real, total = int(np.count_nonzero(payload[3])), int(payload[3].size)
         meta = {
             "rows": len(keys),
             "real_tokens": real,

@@ -30,7 +30,7 @@ from pathway_tpu_torch.models import decoder as dec
 from pathway_tpu_torch.models.minilm import SentenceEncoder
 from pathway_tpu_torch.models.transformer import TransformerConfig
 from pathway_tpu_torch.ops import kernels
-from pathway_tpu_torch.ops.kernels.flash_attention import reference_attention
+from pathway_tpu_torch.ops.kernels.flash_attention import padded_head_dim, reference_attention
 from pathway_tpu_torch.ops.kernels.knn_topk import reference_knn_topk
 from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
 
@@ -221,9 +221,12 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
     q, k, v, mask = _flash_case(b, h, lq, lk, d, dtype, seed=lq + d, card=card)
     before = kernels.flash_attention.launches
+    instance = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}<{padded_head_dim(d)}>"
+    before_instance = kernels.flash_attention.launches_by_instance.get(instance, 0)
     out = kernels.flash_attention(q, k, v, mask, causal=causal)
     torch.cuda.synchronize()
     assert kernels.flash_attention.launches == before + 1
+    assert kernels.flash_attention.launches_by_instance[instance] == before_instance + 1
     assert out.shape == q.shape and out.dtype == dtype
     assert bool(torch.isfinite(out.float()).all())
     ref = reference_attention(q, k, v, mask, d ** -0.5, causal)
@@ -415,6 +418,26 @@ def test_fused_embed_search_on_card_matches_cpu(card):
     for g, w in zip(got, want):
         assert [key for key, _ in g] == [key for key, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4, rtol=0)
+
+
+def test_packed_prepare_of_long_docs_takes_flash_on_card(card):
+    """On the card, docs past the flash gate take the classic path (masked
+    flash) in place of dense segment attention over wide slabs, and embed
+    as the CPU's packed path does."""
+    docs = [" ".join(f"w{(i * 7 + j) % 97}" for j in range(300 + 40 * i)) for i in range(6)]
+    embs = []
+    for dev in (card, "cpu"):
+        enc = SentenceEncoder("long-pack-test", config=_small_config("float32"), max_len=512,
+                              device=dev)
+        fused = FusedEmbedSearch(enc, DeviceKnnIndex(64, reserved_space=16, device=dev), device=dev)
+        payload, _ = fused.prepare_batch(range(6), docs)
+        assert payload[0] == ("classic" if dev == card else "packed")
+        before = kernels.flash_attention.launches
+        embs.append(fused.dispatch_batch(payload).float().cpu().numpy())
+        if dev == card:
+            torch.cuda.synchronize()
+            assert kernels.flash_attention.launches == before + 2  # one per layer
+    np.testing.assert_allclose(embs[0], embs[1], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("pack", [True, False])

@@ -31,7 +31,7 @@ PORT_PKG = os.path.join(REPO, "pathway_tpu_torch")
 
 # the copied subpackages, and the copied modules outside them
 _COPIED_DIRS = (
-    "analysis", "debug", "engine", "internals", "io", "persistence", "stdlib", "xpacks",
+    "analysis", "debug", "demo", "engine", "internals", "io", "persistence", "stdlib", "xpacks",
 )
 _COPIED_FILES = ("cli.py", "universes.py")
 
@@ -107,6 +107,18 @@ EDITED = {
         "deadline, which at a delay as long as the interval flushed every tick "
         "before reading and never read the queue again"
     ),
+    "io/http/_server.py": (
+        "a REST connector takes a micro-batcher of its own when its run starts and "
+        "retires it when the run ends; shared by the route for the life of the "
+        "process, as in the JAX package, a server on the route in a later run "
+        "parked its requests on the ended run's connector and never answered"
+    ),
+    "internals/serving.py": (
+        "ServingTier.batcher makes a new micro-batcher for each REST connector's "
+        "run, and ServingTier.retire closes it at the run's end and keeps its "
+        "counts, in place of one get-or-create batcher per route for the life "
+        "of the process"
+    ),
     "io/fs.py": (
         "the streaming reader waits out its refresh interval through "
         "_wait_for_run_end and returns when the run has ended, in place of a sleep "
@@ -128,6 +140,11 @@ EDITED = {
     "xpacks/llm/llms.py": (
         "HFPipelineChat(device=None) places the decoder (None: the CUDA card) and "
         "passes it to ChatModel.cached; the JAX package ignores its device='tpu'"
+    ),
+    "internals/yaml_loader.py": (
+        "_resolve_dotted refuses a tag that names pathway_tpu, so that a manifest "
+        "cannot make the port import the JAX package; !pw. tags resolve inside "
+        "pathway_tpu_torch as there"
     ),
     "xpacks/llm/rerankers.py": (
         "CrossEncoderReranker and EncoderReranker take device=None (the CUDA card) "
@@ -162,6 +179,32 @@ def _tree(path: str, *, port: bool) -> str:
     if port:
         src = src.replace("pathway_tpu_torch", "pathway_tpu")
     return ast.dump(_strip_docstrings(ast.parse(src)), include_attributes=False)
+
+
+# the JAX package's modules that the port has no counterpart for: training
+# and the device mesh (internals/mesh_backend.py is a counterpart, in
+# EDITED: its device half raises)
+UNPORTED = {
+    "models/long_context.py",
+    "models/training.py",
+    "parallel/__init__.py",
+    "parallel/mesh.py",
+    "parallel/multichip_checks.py",
+    "parallel/ring_attention.py",
+}
+
+
+def _modules(pkg: str) -> set:
+    out = set()
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        out |= {os.path.relpath(os.path.join(root, f), pkg) for f in files if f.endswith(".py")}
+    return out
+
+
+def test_the_unported_modules_are_training_and_the_mesh():
+    assert _modules(JAX_PKG) - _modules(PORT_PKG) == UNPORTED
+    assert "internals/mesh_backend.py" in EDITED
 
 
 def test_every_copied_module_has_a_jax_counterpart():

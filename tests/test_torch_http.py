@@ -49,10 +49,12 @@ def _mod(name: str, path: str):
 
 @pytest.fixture(autouse=True)
 def _fresh_serving_tiers():
-    """The serving tier keeps one micro-batcher per REST route for the life
-    of the process, bound to the first connector on that route. A fresh
-    tier after each test keeps a later server on the same route (in this
-    file, or in another file run by this worker) off this test's engines."""
+    """The JAX package's serving tier keeps one micro-batcher per REST
+    route for the life of the process, bound to the first connector on
+    that route (the port's connector retires its own at its run's end). A
+    fresh tier after each test keeps a later server on the same route (in
+    this file, or in another file run by this worker) off this test's
+    engines."""
     yield
     for name in PACKAGES:
         _mod(name, "internals.serving").reset_for_tests()
@@ -102,8 +104,8 @@ def _start(name, build, route="/double"):
 
 def _double_route(name, *, route="/double", with_cors=True):
     """A rest_connector route (GET and POST) answering 2 x value. Apps
-    alive at once in one package take distinct routes: the serving tier
-    keeps one micro-batcher per route, process-wide."""
+    alive at once in one package take distinct routes: the JAX package's
+    serving tier keeps one micro-batcher per route, process-wide."""
     srv = _mod(name, "io.http._server")
 
     def build(pw, port):
@@ -164,6 +166,29 @@ def test_webserver_answers_as_the_jax_one(double_apps, request_id):
         assert got[2]["Access-Control-Allow-Origin"] == "*"
     if request_id == "get-coerces-the-query-string":
         assert got[1] == 42
+
+
+def test_a_route_served_again_in_a_later_run_answers():
+    """A server on a route whose first server's run has ended answers: a
+    REST connector parks requests on a micro-batcher of its own run, whose
+    thread exits when the run ends. The JAX package keeps one batcher per
+    route for the life of the process, so there the second server's
+    requests go to the ended run and never return."""
+    first_port, first = _start("port", _double_route("port", route="/again"), "/again")
+    assert _request(first_port, "GET", "/again?value=4")[:2] == (200, 8)
+    (first_batcher,) = [t for t in threading.enumerate() if t.name == "serve-batch:/again"]
+    first.terminate_flag.set()
+    first_batcher.join(30)
+    assert not first_batcher.is_alive(), "the ended run's micro-batcher thread still runs"
+    port, engine = _start("port", _double_route("port", route="/again"), "/again")
+    try:
+        assert _request(port, "GET", "/again?value=21")[:2] == (200, 42)
+        assert _request(port, "POST", "/again", b'{"value": 5}')[:2] == (200, 10)
+        # the tier still counts the retired batcher's queries: two a run
+        # from _start and the first, two more here
+        assert _mod("port", "internals.serving").tier().status()["batched_queries"] >= 5
+    finally:
+        engine.terminate_flag.set()
 
 
 def test_webserver_without_cors_sets_no_cors_headers():

@@ -89,6 +89,16 @@ def test_importing_the_port_loads_no_jax():
         "import pathway_tpu_torch.internals.trace_tool, pathway_tpu_torch.internals.supervisor\n"
         "from pathway_tpu_torch.internals import profiler\n"
         "from pathway_tpu_torch.analysis import analyze, verify_capacity, AnalysisError\n"
+        "import pathway_tpu_torch.internals.sql, pathway_tpu_torch.internals.yaml_loader\n"
+        "import pathway_tpu_torch.demo\n"
+        "pw.sql, pw.load_yaml, pw.demo.range_stream, pw.demo.replay_csv\n"
+        "for name in ('_writer', '_mq', '_avro', '_lake_fs', 'sqlite', 'postgres', 'kafka',\n"
+        "             'redpanda', 'debezium', 'nats', 'mqtt', 'minio', 'deltalake', 'iceberg',\n"
+        "             'mongodb', 'dynamodb', 'elasticsearch', 'questdb', 'bigquery', 'pubsub',\n"
+        "             'logstash', 'slack', 'gdrive', 'pyfilesystem'):\n"
+        "    __import__('pathway_tpu_torch.io.' + name)\n"
+        "    name.startswith('_') or getattr(pw.io, name)\n"
+        "pw.load_yaml('$s: !pw.xpacks.llm.splitters.NullSplitter\\nout: $s\\n')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
         "assert not bad, bad\n"

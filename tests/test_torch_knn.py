@@ -191,6 +191,67 @@ def test_fused_packed_prepare_dispatch_matches_jax():
     assert payload[0] == "classic" and meta["rows"] == 24
 
 
+def test_fused_prepare_of_docs_past_the_flash_gate_takes_the_classic_path():
+    """On the card, a batch holding a doc longer than the flash gate takes
+    the classic path, whose masked attention takes the flash kernel:
+    packed slabs would attend densely ([rows, heads, L, L] scores, which
+    exhausted the card's memory at 4,096 chunks of 300-450 tokens). The
+    texts are tokenized once, and the classic payload is encode_batch's.
+    On the CPU, where no flash runs, the port packs as the JAX package
+    does. prepare_batch is host work: an index on the CPU stands in for
+    the card's by its device. The embeddings of every payload agree with
+    the JAX package's."""
+    from pathway_tpu_torch.models.tokenizer import encode_batch
+    from pathway_tpu_torch.models.transformer import FLASH_MIN_LEN
+
+    cfg = dict(vocab_size=512, hidden=64, layers=2, heads=4, mlp_dim=128, max_len=512,
+               dtype="float32")
+    jc = jax_tf.TransformerConfig(**cfg)
+    pc = port_tf.TransformerConfig(**cfg)
+    jenc = JaxSentenceEncoder("fused-long-test", config=jc, max_len=512, seed=3)
+    penc = SentenceEncoder("fused-long-test", config=pc, max_len=512, device="cpu")
+    penc.lm = port_tf.TransformerLM(
+        pc, params=params_from_jax(jax.tree_util.tree_map(np.asarray, jenc.lm.params)),
+        device="cpu",
+    )
+    jf = jax_knn.FusedEmbedSearch(jenc, jax_knn.DeviceKnnIndex(64, reserved_space=16))
+    pf = port_knn.FusedEmbedSearch(
+        penc, port_knn.DeviceKnnIndex(64, reserved_space=16, device="cpu"), device="cpu"
+    )
+    words = ["stream", "table", "vector", "query", "index", "kernel"]
+    docs = [" ".join(words[(i + j) % 6] for j in range(20 + 140 * i)) + f" doc{i}" for i in range(4)]
+    keys = [f"k{i}" for i in range(4)]
+    jpayload, _ = jf.prepare_batch(keys, docs)
+    assert jpayload[0] == "packed" and jpayload[2].shape[1] > FLASH_MIN_LEN
+    emb_j = np.asarray(jf.dispatch_batch(jpayload))
+    on_cpu, _ = pf.prepare_batch(keys, docs)
+    assert on_cpu[0] == "packed"
+    np.testing.assert_array_equal(on_cpu[2], jpayload[2])
+
+    encodes = []
+    tokenizer = penc.tokenizer
+    plain_encode = tokenizer.encode
+    tokenizer.encode = lambda text, max_len=None: encodes.append(text) or plain_encode(text, max_len)
+    pf.device = torch.device("cuda")
+    try:
+        on_card, meta = pf.prepare_batch(keys, docs)
+        short = pf.prepare_batch(keys, [d[:200] for d in docs])[0]
+    finally:
+        pf.device = torch.device("cpu")
+        tokenizer.encode = plain_encode
+    assert on_card[0] == "classic" and meta["rows"] == 4
+    assert len(encodes) == 2 * len(docs)  # once a text, for either path
+    ids, mask = encode_batch(tokenizer, docs, max_len=512)
+    np.testing.assert_array_equal(on_card[2], ids)
+    np.testing.assert_array_equal(on_card[3], mask)
+    assert meta["real_tokens"] == int(mask.sum())
+    # docs within the gate still pack on the card
+    assert short[0] == "packed"
+    for payload in (on_cpu, on_card):
+        emb_p = pf.dispatch_batch(payload)
+        np.testing.assert_allclose(emb_p.numpy(), emb_j, atol=1e-4, rtol=0)
+
+
 def test_fused_rejects_encoder_and_index_on_two_devices():
     _, penc = _encoders()
     index = port_knn.DeviceKnnIndex(64, device="meta")
