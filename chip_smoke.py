@@ -128,8 +128,28 @@ width with random weights from a seed:
      each result against sqlite3 running the same SQL on the same file;
      (c) pw.demo.replay_csv at 10^6 rows/s through a groupby into
      pw.io.subscribe, against plain Python;
+ 15. training and the model-parallel core, run after 14 and before 13:
+     (a) make_train_step (lr 1e-3) at MiniLM-L6 width (vocab 30522, hidden
+     384, 6 layers, 12 heads, MLP 1536, bf16), causal with pooling none and
+     max_len 512, as the JAX package's multichip check configures it, 5
+     steps on 16 texts of 512 tokens: step 1's loss and every gradient leaf
+     through flash against dense attention, 6 flash_fwd_bf16<32> launches a
+     step, the loss falling; ms a step, tokens/s, the step's bound and the
+     backward's attention recompute's share; (b) make_sharded_train_step
+     over a (dp = 2, tp = 2) mesh laid on the one card (["cuda:0"] * 4): the
+     loss and every gathered new param against the unsharded step on the
+     same params and batch, 24 launches a step; (c)
+     sequence_parallel_forward at Mistral-7B geometry (hidden 4096, 32
+     layers, 32 heads of 128, MLP 14336, vocab 32000, f32 weights drawn on
+     the card) over an sp = 4 mesh on the one card, [1, 4096] with a padded
+     tail, ring and Ulysses against the unsharded forward (row cosine >=
+     0.999), Ulysses taking flash_fwd_bf16<128> 128 times and ring none, the
+     peak memory under 1.5x the params (replication copies nothing); (d)
+     flash at those shapes against the plain version and
+     scaled_dot_product_attention;
  11. the card's line, one `kernels` JSON line (launches_by_path per phase,
-     "operability" and "declarative" included), then the `ok` JSON line.
+     "operability", "declarative" and phase 15's included), then the `ok`
+     JSON line.
 
 Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
 (wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
@@ -2980,6 +3000,307 @@ def run_demo_replay(card: str, n_rows: int = N_REPLAY_ROWS) -> dict:
     return {"rows_per_s": n_rows / elapsed}
 
 
+# -- phase 15: training and the model-parallel core -------------------------------
+
+# 15a / 15b: MiniLM-L6's widths, causal, pooling none, as the JAX package's
+# multichip training check configures its model; 16 texts of 512 tokens
+TRAIN_ROWS, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 16, 512, 5, 1e-3
+# 15c: the 7B geometry's full context over an sp axis of 4 on the one card;
+# the last SP_PAD positions are padding
+SP_LEN, SP, SP_PAD = 4096, 4, 333
+# step 1 through flash against the same step with dense attention: the two
+# differ only in the rounding of the attention forward's bf16 output
+# (phase 3: 2e-2 on unit inputs), carried through 6 bf16 layers. The loss
+# within 2e-3 relative; each gradient leaf within 0.1 of its largest |g|
+# (a bias gradient sums 8,192 tokens' terms with much cancellation;
+# tests/test_torch_training.py holds the port against the JAX package at
+# the same bf16 tolerance)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-3, 0.1
+# the sharded step's new params against the unsharded step's: each leaf's
+# difference within 0.1 of the unsharded update's largest |value| (the row
+# shards' partial products round to bf16 before their psum, as the
+# gradients above), plus f32 rounding of the leaf (1e-6 of its largest)
+SHARD_UPDATE_TOL = 0.1
+SP_COSINE = 0.999
+
+
+def _train_config():
+    import dataclasses
+
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+
+    return dataclasses.replace(MINILM_L6, causal=True, pooling="none", max_len=TRAIN_LEN)
+
+
+def _train_inputs(config, seed: int = 13):
+    """Seeded weights drawn on the card and the batch: ids, an all-live
+    mask and next-token labels."""
+    from pathway_tpu_torch.models.transformer import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(gen, config)
+    ids = torch.randint(0, config.vocab_size, (TRAIN_ROWS, TRAIN_LEN), device="cuda", generator=gen)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    return params, ids, mask, torch.roll(ids, -1, dims=1)
+
+
+def train_step_bound(config, rows: int, length: int) -> dict:
+    """The least time of one training step on the card: forward and
+    backward are 3x the forward's products. bf16: the layers' dense
+    products, 2 H (4 H + 2 MLP) a token a layer, and causal attention,
+    4 D a (query, key) pair with key <= query, at 989 TFLOP/s; f32: the
+    tied logits, 2 H V a token, at 67 TFLOP/s (no TF32)."""
+    h, layers = config.hidden, config.layers
+    tokens = rows * length
+    dense = 2 * tokens * h * (4 * h + 2 * config.mlp_dim) * layers
+    attn = 4 * rows * config.heads * (length * (length + 1) / 2) * config.head_dim * layers
+    bf16_ms = 3 * (dense + attn) / BF16_FLOPS * 1e3
+    f32_ms = 3 * 2 * tokens * h * config.vocab_size / F32_FLOPS * 1e3
+    return {"bf16_ms": bf16_ms, "f32_ms": f32_ms, "bound_ms": bf16_ms + f32_ms}
+
+
+def _leaf_errors(got, want) -> float:
+    """The largest, over leaves, of max |got - want| / max |want|."""
+    from pathway_tpu_torch.models.transformer import _leaves
+
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        scale = b.float().abs().max().item()
+        worst = max(worst, (a.float() - b.float()).abs().max().item() / max(scale, 1e-30))
+    return worst
+
+
+def _step_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def run_train_step(card: str, flash_attention, reference_attention) -> dict:
+    """15a: make_train_step at MiniLM-L6 width on the card, 5 steps on one
+    batch; step 1's loss and gradients against dense attention's."""
+    from pathway_tpu_torch.models.training import loss_and_grads, make_train_step
+
+    config = _train_config()
+    params, ids, mask, labels = _train_inputs(config)
+    flash_attention.launches_by_instance = {}
+    loss_f, grads_f = loss_and_grads(params, config, ids, mask, labels)
+    check(flash_attention.launches_by_instance == {"bf16<32>": config.layers},
+          f"15a: a step through flash launched {flash_attention.launches_by_instance}")
+    loss_d, grads_d = loss_and_grads(params, config, ids, mask, labels, use_flash=False)
+    loss_err = abs(float(loss_f) - float(loss_d)) / abs(float(loss_d))
+    grad_err = _leaf_errors(grads_f, grads_d)
+    check(loss_err <= TRAIN_LOSS_TOL, f"15a: step 1's loss through flash {float(loss_f)} against "
+          f"dense attention's {float(loss_d)}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"15a: a gradient through flash is off by {grad_err} of its "
+          f"leaf's largest")
+    log(f"  step 1 through flash against dense attention: loss {float(loss_f):.6f} / "
+        f"{float(loss_d):.6f} (rel err {loss_err:.3g}, tol {TRAIN_LOSS_TOL}), gradients within "
+        f"{grad_err:.4f} of their leaf's largest |g| (tol {TRAIN_GRAD_TOL}) over "
+        f"{len(list(_tensors(grads_f)))} leaves  ok")
+    del grads_f, grads_d
+
+    step = make_train_step(config, TRAIN_LR)
+    losses, times = [], []
+    flash_attention.launches = 0
+    flash_attention.launches_by_instance = {}
+    for _ in range(TRAIN_STEPS):
+        out = {}
+        times.append(_step_ms(lambda: out.update(loss=step(params, ids, mask, labels)[1])))
+        losses.append(float(out["loss"]))
+    launches = flash_attention.launches
+    check(flash_attention.launches_by_instance == {"bf16<32>": config.layers * TRAIN_STEPS},
+          f"15a: {TRAIN_STEPS} steps launched {flash_attention.launches_by_instance}")
+    check(all(math.isfinite(x) for x in losses), f"15a: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"15a: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    ms = float(np.median(times))
+    bound = train_step_bound(config, TRAIN_ROWS, TRAIN_LEN)
+
+    # the backward's attention recompute (reference_attention, differentiated;
+    # the JAX package's design), timed alone at one layer's shape
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    shape = (TRAIN_ROWS, config.heads, TRAIN_LEN, config.head_dim)
+    q, k, v, g = (torch.randn(shape, device="cuda", generator=gen).bfloat16() for _ in range(4))
+    scale = config.head_dim ** -0.5
+
+    def recompute():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(reference_attention(*inputs, mask, scale, True), inputs, g)
+
+    recompute_ms = median_ms(recompute, reps=5, inner=3)
+    share = config.layers * recompute_ms / ms
+    tokens = TRAIN_ROWS * TRAIN_LEN
+    log(f"  {TRAIN_STEPS} steps of make_train_step(lr={TRAIN_LR}) on [{TRAIN_ROWS}, {TRAIN_LEN}]: "
+        f"losses {[round(x, 6) for x in losses]}; {ms:.3f} ms a step (median; steps "
+        f"{[round(t, 3) for t in times]}), {tokens / ms * 1e3:,.0f} tokens/s; bound "
+        f"{bound['bound_ms']:.3f} ms (bf16 products {bound['bf16_ms']:.3f}, f32 logits "
+        f"{bound['f32_ms']:.3f}), {bound['bound_ms'] / ms:.3f} of it; the backward's attention "
+        f"recompute {recompute_ms:.3f} ms a layer, {share:.3f} of the step; flash launches "
+        f"{launches} ({config.layers} a step, bf16<32>) [{card}]")
+    return {"launches": launches, "ms": ms, "losses": losses, "recompute_share": share, **bound}
+
+
+def run_sharded_train_step(card: str, flash_attention, unsharded_ms: float) -> dict:
+    """15b: make_sharded_train_step over a (dp = 2, tp = 2) mesh laid on the
+    one card, against the unsharded step on the same params and batch."""
+    from pathway_tpu_torch.models.training import make_sharded_train_step, make_train_step
+    from pathway_tpu_torch.models.transformer import _leaves, _rebuild, tp_gather
+    from pathway_tpu_torch.parallel import get_mesh
+
+    config = _train_config()
+    params, ids, mask, labels = _train_inputs(config)
+    mesh = get_mesh((2, 2), ("dp", "tp"), devices=["cuda:0"] * 4)
+    shard_launches = 2 * 2 * config.layers
+    step, place_params, place_batch = make_sharded_train_step(mesh, config, TRAIN_LR)
+    shards = place_params(params)  # a copy: `params` stays as drawn
+    batch = place_batch(ids, mask, labels)
+    flash_attention.launches = 0
+    flash_attention.launches_by_instance = {}
+    shards, loss = step(shards, *batch)
+    launches = flash_attention.launches
+    check(flash_attention.launches_by_instance == {"bf16<32>": shard_launches},
+          f"15b: a sharded step launched {flash_attention.launches_by_instance}")
+    gathered = tp_gather(shards, config, mesh)
+    gathered = _rebuild(gathered, (p.clone() for p in _leaves(gathered)))
+
+    reference = _rebuild(params, (p.clone() for p in _leaves(params)))
+    reference, loss_u = make_train_step(config, TRAIN_LR)(reference, ids, mask, labels)
+    loss_err = abs(float(loss) - float(loss_u)) / abs(float(loss_u))
+    check(loss.device == mesh.devices.flat[0], f"15b: the loss is on {loss.device}")
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"15b: the sharded loss {float(loss)} against the unsharded {float(loss_u)}")
+    worst = 0.0
+    for new, want, old in zip(_leaves(gathered), _leaves(reference), _leaves(params), strict=True):
+        err = (new - want).abs().max().item()
+        allowed = (SHARD_UPDATE_TOL * (want - old).abs().max().item()
+                   + 1e-6 * old.abs().max().item())
+        check(err <= allowed, f"15b: a new param is off by {err} (allowed {allowed})")
+        worst = max(worst, err / allowed)
+    log(f"  the sharded step against the unsharded: loss {float(loss):.6f} / {float(loss_u):.6f} "
+        f"(rel err {loss_err:.3g}), every new param within {worst:.3f} of its tolerance "
+        f"({SHARD_UPDATE_TOL} of the update's largest)  ok")
+    del gathered, reference
+
+    times = []
+    flash_attention.launches = 0
+    flash_attention.launches_by_instance = {}
+    for _ in range(TRAIN_STEPS):
+        times.append(_step_ms(lambda: step(shards, *batch)))
+    check(flash_attention.launches_by_instance == {"bf16<32>": shard_launches * TRAIN_STEPS},
+          f"15b: {TRAIN_STEPS} sharded steps launched {flash_attention.launches_by_instance}")
+    launches += flash_attention.launches
+    ms = float(np.median(times))
+    log(f"  make_sharded_train_step over {mesh.shape} on one card: {ms:.3f} ms a step (median of "
+        f"{TRAIN_STEPS}; 15a's unsharded step {unsharded_ms:.3f} ms, {ms / unsharded_ms:.2f}x); "
+        f"flash launches {launches} over {TRAIN_STEPS + 1} steps ({shard_launches} a step, bf16<32> at "
+        f"[{TRAIN_ROWS // 2}, {config.heads // 2}, {TRAIN_LEN}, {config.head_dim}]) [{card}]")
+    return {"launches": launches, "ms": ms}
+
+
+def _row_cosines(a, b):
+    a, b = a.float(), b.float()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-12)
+
+
+def run_sequence_parallel(card: str, flash_attention) -> dict:
+    """15c: sequence_parallel_forward at Mistral-7B geometry over an sp = 4
+    mesh laid on the one card, ring and Ulysses, against the unsharded
+    forward, all under no_grad."""
+    from pathway_tpu_torch.models.long_context import sequence_parallel_forward
+    from pathway_tpu_torch.models.transformer import MISTRAL_7B, _leaves, forward, init_params
+    from pathway_tpu_torch.parallel import get_mesh
+
+    config = MISTRAL_7B
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    t0 = time.perf_counter()
+    params = init_params(gen, config)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    ids = torch.randint(0, config.vocab_size, (1, SP_LEN), device="cuda", generator=gen)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    mask[:, SP_LEN - SP_PAD:] = 0
+    mesh = get_mesh((SP,), ("sp",), devices=["cuda:0"] * SP)
+    runs = {
+        "unsharded": lambda: forward(params, config, ids, mask),
+        "ring": lambda: sequence_parallel_forward(params, config, ids, mask, mesh, attn="ring"),
+        "ulysses": lambda: sequence_parallel_forward(params, config, ids, mask, mesh, attn="ulysses"),
+    }
+    want_launches = {"unsharded": {"bf16<128>": config.layers}, "ring": {},
+                     "ulysses": {"bf16<128>": config.layers * SP}}
+    torch.cuda.reset_peak_memory_stats()
+    outs, launches = {}, {}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            flash_attention.launches_by_instance = {}
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            launches[name] = dict(flash_attention.launches_by_instance)
+            check(launches[name] == want_launches[name], f"15c: {name} launched {launches[name]}")
+            check(outs[name].shape == (1, SP_LEN, config.vocab_size)
+                  and bool(torch.isfinite(outs[name]).all()), f"15c: {name}: bad logits")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 1.5 * param_bytes, f"15c: peak memory {peak} B against the params' {param_bytes} B: "
+          f"replication copied")
+    for name in ("ring", "ulysses"):
+        cos = _row_cosines(outs[name][0], outs["unsharded"][0])
+        err = (outs[name] - outs["unsharded"]).abs().max().item()
+        check(cos.min().item() >= SP_COSINE, f"15c: {name} row cosine {cos.min().item()}")
+        log(f"  {name} over sp = {SP} against the unsharded forward: {SP_LEN} rows, min cosine "
+            f"{cos.min().item():.6f} (>= {SP_COSINE}), max |err| {err:.4g}, flash {launches[name]}  ok")
+    outs.clear()
+    with torch.no_grad():
+        ms = {name: median_ms(fn, reps=3, inner=1) for name, fn in runs.items()}
+    log(f"  Mistral-7B geometry (f32 params {param_bytes / 1e9:.2f} GB, drawn on the card in "
+        f"{init_s:.2f} s; {before / 1e9:.2f} GB allocated before), [1, {SP_LEN}] with "
+        f"{SP_PAD} padded: peak {peak / 1e9:.2f} GB, {peak / param_bytes:.3f}x the params; "
+        + ", ".join(f"{name} {t:.1f} ms ({SP_LEN / t * 1e3:,.0f} tokens/s)" for name, t in ms.items())
+        + f" [{card}]")
+    return {"launches": launches, "ms": ms, "peak_bytes": peak, "param_bytes": param_bytes}
+
+
+def time_flash_training_shapes(flash_attention, reference_attention) -> list:
+    """Flash at phase 15's shapes, causal, against the plain version and
+    scaled_dot_product_attention: the trainer's [16, 12, 512, 32], a tp
+    shard's [8, 6, 512, 32], a Ulysses position's [1, 8, 4096, 128] and
+    the unsharded 7B's [1, 32, 4096, 128] (the last two with 15c's padded
+    tail)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    rows = []
+    for b, h, l, d in ((16, 12, 512, 32), (8, 6, 512, 32), (1, 8, 4096, 128), (1, 32, 4096, 128)):
+        q, k, v = (torch.randn((b, h, l, d), device="cuda", generator=gen).bfloat16() for _ in range(3))
+        mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
+        if l == SP_LEN:
+            mask[:, l - SP_PAD:] = 0
+        scale = d ** -0.5
+        err = live_rows_err(flash_attention(q, k, v, mask, causal=True),
+                            reference_attention(q, k, v, mask, scale, True), mask)
+        check(err <= 2e-2, f"flash_attention bf16 causal [{b},{h},{l},{d}]: error {err}")
+        ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=True))
+        plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, True), reps=5, inner=3)
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        pairs = b * h * l * (l + 1) / 2
+        nbytes = 4 * q.numel() * 2 + mask.numel() * 4
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / BF16_FLOPS * 1e3
+        log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (flash_fwd_bf16<{d}>): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention(is_causal) "
+            f"{library_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 "
+            f"products {op_ms:.4f}), max |err| {err:.3g}  ok")
+        rows.append({
+            "shape": [b, h, l, d], "causal": True, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": library_ms,
+        })
+    return rows
+
+
 # -- phase 8: the framework path on the card's host ------------------------------
 
 
@@ -3259,7 +3580,36 @@ def main() -> int:
         check(knn_topk.launches == 0 and flash_attention.launches == 0, f"{name} launched a kernel")
     log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s; 14b and 14c launched no kernel (host only)")
 
-    # phase 13 runs after 14 and before 8, as 9 does: the wordcount's
+    # phase 15 runs after 14 and before 13, so 13a's check that earlier
+    # phases let go of what they held covers it too
+    log("[15] training and the model-parallel core, before phase 13")
+    _collect_earlier_phases()
+    t_phase = time.perf_counter()
+    log("[15a] make_train_step at MiniLM-L6 width")
+    knn_topk.launches = 0
+    train = run_train_step(card, flash_attention, reference_attention)
+    log("[15b] make_sharded_train_step over a (dp = 2, tp = 2) mesh")
+    sharded = run_sharded_train_step(card, flash_attention, train["ms"])
+    log("[15c] ring and Ulysses sequence parallelism at Mistral-7B geometry, sp = 4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = run_sequence_parallel(card, flash_attention)
+    check(knn_topk.launches == 0, "phase 15 launched knn_topk")
+    log("[15d] flash at phase 15's shapes")
+    train_shapes = time_flash_training_shapes(flash_attention, reference_attention)
+    for row, launches in zip(train_shapes, (train["launches"], sharded["launches"],
+                                            seq["launches"]["ulysses"]["bf16<128>"],
+                                            seq["launches"]["unsharded"]["bf16<128>"])):
+        row["launches"] = launches
+    flash_row["shapes"] += train_shapes
+    for path, n in (("training", train["launches"]), ("sharded_training", sharded["launches"]),
+                    ("sequence_parallel_ulysses", seq["launches"]["ulysses"]["bf16<128>"]),
+                    ("sequence_parallel_ring", 0)):
+        flash_row["launches_by_path"][path] = n
+        knn_row["launches_by_path"][path] = 0
+    log(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+
+    # phase 13 runs after 14 and 15 and before 8, as 9 does: the wordcount's
     # engine is not to weigh on it
     log("[13] operability on the card: the capacity plan, the profiler, the cli, before phase 8")
     knn_topk.launches = 0

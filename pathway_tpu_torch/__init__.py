@@ -43,7 +43,11 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
     index and the fused embed+search object (ops/knn.py), and
     hand-written Hopper kernels for the JAX package's two Pallas kernels
     (ops/kernels/; flash is differentiable, its backward recomputing
-    the plain version as the JAX package's does).
+    the plain version as the JAX package's does);
+  * training (models/training.py: the step, and the step over a
+    ("dp", "tp") mesh with Megatron tensor parallelism) and sequence
+    parallelism (models/long_context.py over parallel/: ring and
+    Ulysses attention), on a single-controller mesh of torch devices.
 
 Usage mirrors the JAX package::
 
@@ -58,9 +62,10 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-Not ported yet: training (models/training.py) and the device mesh
-(parallel/, models/long_context.py, the device half of
-internals/mesh_backend.py).
+Not ported yet: the data-plane mesh (the sharded KNN index and its
+fused search, ``SentenceEncoder(mesh=)``, tensor-parallel decode, the
+device half of internals/mesh_backend.py behind ``pw.run(mesh=...)``,
+and parallel/multichip_checks.py).
 """
 
 from __future__ import annotations

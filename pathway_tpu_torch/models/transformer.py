@@ -13,7 +13,14 @@ the hand-written flash kernel (ops/kernels/flash_attention.py); packed
 slabs use dense segment-masked attention, as in the JAX package. The
 decoder configs (`MISTRAL_7B`, `TINY_DECODER`) and `TransformerLM.generate`
 (greedy, recomputing the prefix) are here too; the KV-cached decoder is
-models/decoder.py. Mesh parameters are not ported yet.
+models/decoder.py.
+
+Tensor parallelism: `param_sharding_rules` gives the JAX package's
+PartitionSpecs over a mesh's `tp` axis, `tp_split` / `tp_gather` lay a
+tree out into per-shard trees and back, and `tp_forward` runs `forward`'s
+math Megatron-style over the list of shards, with parallel/collectives.py
+in the place of the collectives XLA's partitioner inserts in the JAX
+package. `TransformerLM.mesh_params` is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from pathway_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
     reference_attention,
 )
+from pathway_tpu_torch.parallel.collectives import psum
+from pathway_tpu_torch.parallel.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,17 +97,20 @@ _MATMUL_KEYS = ("qkv", "qkv_b", "out", "out_b", "up", "up_b", "down", "down_b")
 
 
 def init_params(generator: torch.Generator, config: TransformerConfig) -> Dict[str, Any]:
-    """Random weights with the JAX package's shapes and key names (values
-    differ: torch's generator is not JAX's). Drawn on the CPU so a seed
-    gives the same weights on every device."""
+    """Random f32 weights with the JAX package's shapes and key names
+    (values differ: torch's generator is not JAX's), drawn on the
+    generator's device. A CPU generator gives the same weights whatever
+    device they go to; a CUDA one draws a 7B-class tree on the card in
+    well under a second."""
     h, mlp, v = config.hidden, config.mlp_dim, config.vocab_size
     scale = 0.02
+    device = generator.device
 
     def dense(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32) * scale
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device).mul_(scale)
 
     def norm():
-        return {"scale": torch.ones(h), "bias": torch.zeros(h)}
+        return {"scale": torch.ones(h, device=device), "bias": torch.zeros(h, device=device)}
 
     params: Dict[str, Any] = {
         "embed": dense(v, h),
@@ -112,13 +124,13 @@ def init_params(generator: torch.Generator, config: TransformerConfig) -> Dict[s
                 "ln1": norm(),
                 "ln2": norm(),
                 "qkv": dense(h, 3 * h),
-                "qkv_b": torch.zeros(3 * h),
+                "qkv_b": torch.zeros(3 * h, device=device),
                 "out": dense(h, h),
-                "out_b": torch.zeros(h),
+                "out_b": torch.zeros(h, device=device),
                 "up": dense(h, mlp),
-                "up_b": torch.zeros(mlp),
+                "up_b": torch.zeros(mlp, device=device),
                 "down": dense(mlp, h),
-                "down_b": torch.zeros(h),
+                "down_b": torch.zeros(h, device=device),
             }
         )
     return params
@@ -219,52 +231,34 @@ def forward(
     if post_ln and "embed_ln" in params:
         x = _layer_norm(x, params["embed_ln"]["scale"], params["embed_ln"]["bias"], eps=1e-12)
     x = x.to(compute_dtype)
-    eps = 1e-12 if post_ln else 1e-6
+    hd = config.head_dim
 
-    heads, hd = config.heads, config.head_dim
-
-    def dense(y, w, bias):
-        return y @ w.to(compute_dtype) + bias.to(compute_dtype)
+    def attend(q, k, v):
+        if seg is not None:
+            return [_segment_attention(q[0], k[0], v[0], seg, 1.0 / np.sqrt(hd))]
+        return [_attention(q[0], k[0], v[0], mask, config.causal, use_flash)]
 
     for layer in params["layers"]:
-        y = x if post_ln else _layer_norm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
-        qkv = dense(y, layer["qkv"], layer["qkv_b"])
-        q, k, v = (
-            t.reshape(b, l, heads, hd).transpose(1, 2) for t in qkv.split(config.hidden, dim=-1)
-        )
-        if seg is not None:
-            ctx = _segment_attention(q, k, v, seg, 1.0 / np.sqrt(hd))
-        else:
-            ctx = _attention(q, k, v, mask, config.causal, use_flash)
-        ctx = ctx.to(compute_dtype).transpose(1, 2).reshape(b, l, config.hidden)
-        attn_out = dense(ctx, layer["out"], layer["out_b"])
-        if post_ln:
-            x = _layer_norm(
-                x + attn_out, layer["ln1"]["scale"], layer["ln1"]["bias"], eps=eps
-            ).to(compute_dtype)
-            y = x
-        else:
-            x = x + attn_out
-            y = _layer_norm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-        y = dense(y, layer["up"], layer["up_b"])
-        if post_ln:
-            # exact erf GELU (BERT convention), in f32 for checkpoint parity
-            y32 = y.float()
-            y = (y32 * 0.5 * (1.0 + torch.erf(y32 * 0.7071067811865476))).to(compute_dtype)
-        else:
-            y = y * 0.5 * (1.0 + torch.tanh(0.7978845608 * (y + 0.044715 * y**3)))
-        mlp_out = dense(y, layer["down"], layer["down_b"])
-        if post_ln:
-            x = _layer_norm(
-                x + mlp_out, layer["ln2"]["scale"], layer["ln2"]["bias"], eps=eps
-            ).to(compute_dtype)
-        else:
-            x = x + mlp_out
+        if not post_ln:
+            x = _pre_ln_layer([x], [layer], attend, hd, compute_dtype)[0]
+            continue
+        ctx = _self_attention([x], [layer], attend, hd, compute_dtype)[0]
+        x = _layer_norm(
+            x + _dense(ctx, layer["out"], layer["out_b"], compute_dtype),
+            layer["ln1"]["scale"], layer["ln1"]["bias"], eps=1e-12,
+        ).to(compute_dtype)
+        # exact erf GELU (BERT convention), in f32 for checkpoint parity
+        y32 = _dense(x, layer["up"], layer["up_b"], compute_dtype).float()
+        y = (y32 * 0.5 * (1.0 + torch.erf(y32 * 0.7071067811865476))).to(compute_dtype)
+        x = _layer_norm(
+            x + _dense(y, layer["down"], layer["down_b"], compute_dtype),
+            layer["ln2"]["scale"], layer["ln2"]["bias"], eps=1e-12,
+        ).to(compute_dtype)
 
     if not post_ln:
-        x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        x = _final_norm(x, params)
     if return_hidden or config.pooling == "none":
-        return torch.einsum("blh,vh->blv", x.float(), params["embed"])
+        return _tied_logits(x, params)
     if seg is not None:
         # per-segment mean pooling: one-hot segment ids contracted over the
         # token axis, [B, L, H] x [B, L, S] -> [B, S, H], summed in x.dtype
@@ -276,8 +270,233 @@ def forward(
     else:  # mean over valid tokens
         m = mask[:, :, None].to(x.dtype)
         pooled = (x * m).sum(dim=1) / (m.sum(dim=1) + 1e-9)
+    return _normalize(pooled)
+
+
+def _gelu_tanh(y):
+    return y * 0.5 * (1.0 + torch.tanh(0.7978845608 * (y + 0.044715 * y**3)))
+
+
+def _dense(y, w, bias, compute_dtype):
+    return y @ w.to(compute_dtype) + bias.to(compute_dtype)
+
+
+def _self_attention(ys: list, layers: list, attend, head_dim: int, compute_dtype) -> list:
+    """The qkv projection, heads split, `attend`, heads merged, over a list
+    of positions (one for `forward`, or a mesh axis's). ys: [B, L, H] per
+    position; layers: each position's layer tree, whose qkv may hold a tp
+    shard's heads. attend(qs, ks, vs) -> the [B, heads, L, D] contexts.
+    Returns [B, L, heads * D] per position, before the out projection."""
+    qkvs = []
+    for y, layer in zip(ys, layers):
+        b, l, _ = y.shape
+        width = layer["qkv"].shape[1] // 3
+        qkvs.append([
+            u.reshape(b, l, width // head_dim, head_dim).transpose(1, 2)
+            for u in _dense(y, layer["qkv"], layer["qkv_b"], compute_dtype).split(width, dim=-1)
+        ])
+    ctx = attend(*([t[j] for t in qkvs] for j in range(3)))
+    return [c.to(compute_dtype).transpose(1, 2).reshape(*y.shape[:2], -1) for c, y in zip(ctx, ys)]
+
+
+def _pre_ln_layer(x: list, layers: list, attend, head_dim: int, compute_dtype,
+                  reduce=lambda parts: parts) -> list:
+    """One pre-LN block (LN1, attention, out, residual, LN2, up, tanh GELU,
+    down, residual) over a list of positions: one for `forward`, one per
+    position of a tp or sp axis. `reduce` takes every position's out and
+    down products, before their biases, and returns what each position
+    adds: the identity, or a psum where the positions hold row shards."""
+    ys = [_layer_norm(xt, layer["ln1"]["scale"], layer["ln1"]["bias"]) for xt, layer in zip(x, layers)]
+    ctx = _self_attention(ys, layers, attend, head_dim, compute_dtype)
+    parts = reduce([c @ layer["out"].to(compute_dtype) for c, layer in zip(ctx, layers)])
+    x = [xt + (s + layer["out_b"].to(compute_dtype)) for xt, s, layer in zip(x, parts, layers)]
+    parts = reduce([
+        _gelu_tanh(_dense(_layer_norm(xt, layer["ln2"]["scale"], layer["ln2"]["bias"]),
+                          layer["up"], layer["up_b"], compute_dtype))
+        @ layer["down"].to(compute_dtype)
+        for xt, layer in zip(x, layers)
+    ])
+    return [xt + (s + layer["down_b"].to(compute_dtype)) for xt, s, layer in zip(x, parts, layers)]
+
+
+def _final_norm(x, params):
+    return _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+
+
+def _tied_logits(x, params):
+    """Logits [B, L, V] in f32 against the (tied) embedding table, or
+    against a tp position's vocab shard of it."""
+    return torch.einsum("blh,vh->blv", x.float(), params["embed"])
+
+
+def _normalize(pooled):
+    """L2-normalised rows, in f32."""
     pooled = pooled.float()
     return pooled / (torch.linalg.vector_norm(pooled, dim=-1, keepdim=True) + 1e-9)
+
+
+# -- tensor parallelism over a mesh's `tp` axis ----------------------------------
+
+# qkv's columns are [q | k | v]; its tp shard t holds the t-th column block
+# of each of the three (whole heads of q, k and v), so a shard's attention
+# needs no other shard's activations
+_QKV_KEYS = ("qkv", "qkv_b")
+
+
+def param_sharding_rules(config: TransformerConfig, mesh) -> Dict[str, Any]:
+    """PartitionSpecs for tensor parallelism on the mesh's 'tp' axis:
+    qkv/up column-sharded, out/down row-sharded (Megatron-style),
+    embeddings vocab-sharded, the rest replicated."""
+    tp = "tp" if "tp" in mesh.axis_names else None
+    return {
+        "embed": P(tp, None),
+        "pos_embed": P(None, None),
+        "ln_f": {"scale": P(None), "bias": P(None)},
+        "layers": [
+            {
+                "ln1": {"scale": P(None), "bias": P(None)},
+                "ln2": {"scale": P(None), "bias": P(None)},
+                "qkv": P(None, tp),
+                "qkv_b": P(tp),
+                "out": P(tp, None),
+                "out_b": P(None),
+                "up": P(None, tp),
+                "up_b": P(tp),
+                "down": P(tp, None),
+                "down_b": P(None),
+            }
+            for _ in range(config.layers)
+        ],
+    }
+
+
+def _leaves_with_specs(params, rules, key=None):
+    """(key, leaf, spec) for each leaf of `params`, walking `rules` beside
+    it; `key` is the leaf's own name in its dict."""
+    if isinstance(params, dict):
+        if set(params) != set(rules):
+            raise ValueError(
+                f"parameters {sorted(params)} do not match the sharding rules' {sorted(rules)}"
+            )
+        for k in params:
+            yield from _leaves_with_specs(params[k], rules[k], k)
+    elif isinstance(params, (list, tuple)):
+        for p, r in zip(params, rules, strict=True):
+            yield from _leaves_with_specs(p, r)
+    else:
+        yield key, params, rules
+
+
+def _leaves(tree):
+    """The leaves of a nested dict / list tree, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _rebuild(tree, leaves):
+    """`tree`'s structure with its leaves taken in order from `leaves`."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def _sharded_dim(spec) -> Optional[int]:
+    dims = [i for i, axis in enumerate(spec) if axis is not None]
+    if len(dims) > 1:
+        raise ValueError(f"{spec}: at most one dim may be sharded")
+    return dims[0] if dims else None
+
+
+def tp_split(params, config: TransformerConfig, mesh) -> list:
+    """One tree per position of the mesh's tp axis: each leaf split by its
+    rule (a replicated leaf is the same tensor in every tree). A size that
+    does not divide by tp raises, as JAX's even sharding does."""
+    rules = param_sharding_rules(config, mesh)
+    tp = mesh.shape.get("tp", 1)
+    per_leaf = []
+    for key, leaf, spec in _leaves_with_specs(params, rules):
+        dim = _sharded_dim(spec)
+        if dim is None:
+            per_leaf.append([leaf] * tp)
+            continue
+        groups = 3 if key in _QKV_KEYS else 1
+        if leaf.shape[dim] % (groups * tp):
+            raise ValueError(
+                f"{key} of shape {tuple(leaf.shape)}, sharded {spec}, does not split evenly "
+                f"over the tp axis of size {tp}"
+            )
+        blocks = [b.chunk(tp, dim) for b in leaf.chunk(groups, dim)]
+        per_leaf.append([torch.cat([b[t] for b in blocks], dim) for t in range(tp)])
+    return [_rebuild(params, iter(leaves)) for leaves in zip(*per_leaf)]
+
+
+def tp_gather(shards: list, config: TransformerConfig, mesh) -> Dict[str, Any]:
+    """The full tree from `tp_split`'s per-shard trees, on the first
+    shard's devices."""
+    rules = param_sharding_rules(config, mesh)
+    per_shard = [list(_leaves_with_specs(tree, rules)) for tree in shards]
+    leaves = []
+    for parts in zip(*per_shard):
+        key, first, spec = parts[0]
+        dim = _sharded_dim(spec)
+        if dim is None:
+            leaves.append(first)
+            continue
+        groups = 3 if key in _QKV_KEYS else 1
+        pieces = [p[1].to(first.device).chunk(groups, dim) for p in parts]
+        leaves.append(torch.cat([piece[g] for g in range(groups) for piece in pieces], dim))
+    return _rebuild(shards[0], iter(leaves))
+
+
+def tp_forward(shards: list, config: TransformerConfig, ids, mask) -> list:
+    """`forward(..., return_hidden=True)` (pre-LN, unpacked) over the tp
+    axis, Megatron-style: one param tree per tp position from `tp_split`,
+    each on its position's device. ids, mask: [B, L], the same batch for
+    every position. Returns each position's logits over its vocab shard,
+    [B, L, V / tp]: the caller reduces them where it needs them (the
+    training loss does so vocab-parallel, never gathering [B, L, V]).
+
+    qkv and up are column shards (whole heads per shard), out and down row
+    shards each followed by a psum; the embedding is vocab-sharded, so a
+    shard looks up only the ids in its range and a psum adds the lookups.
+    LayerNorms, pos_embed and the out / down biases are replicated."""
+    if config.norm_style != "pre":
+        raise ValueError("tp_forward runs the pre-LN layout only")
+    compute_dtype = _compute_dtype(config)
+    devices = [tree["ln_f"]["scale"].device for tree in shards]
+    tp = len(shards)
+    l = ids.shape[1]
+    ids = [ids.long().to(dev) for dev in devices]
+    masks = [mask.to(dev) for dev in devices]
+    if config.heads % tp:
+        raise ValueError(f"heads {config.heads} not divisible by the tp axis of size {tp}")
+
+    rows = shards[0]["embed"].shape[0]
+    lookups = []
+    for t, tree in enumerate(shards):
+        local = ids[t] - t * rows
+        hit = (local >= 0) & (local < rows)
+        lookups.append(tree["embed"][local.clamp(0, rows - 1)] * hit[..., None])
+    x = [
+        (e + tree["pos_embed"][:l][None, :, :]).to(compute_dtype)
+        for e, tree in zip(psum(lookups), shards)
+    ]
+
+    def attend(qs, ks, vs):
+        return [_attention(q, k, v, m, config.causal, None) for q, k, v, m in zip(qs, ks, vs, masks)]
+
+    for i in range(config.layers):
+        layers = [tree["layers"][i] for tree in shards]
+        x = _pre_ln_layer(x, layers, attend, config.head_dim, compute_dtype, reduce=psum)
+    return [_tied_logits(_final_norm(xt, tree), tree) for xt, tree in zip(x, shards)]
 
 
 def _as_tensor_tree(tree):

@@ -592,3 +592,105 @@ def test_flash_gradients_on_card_match_cpu(card, d, dtype, causal):
     with torch.no_grad():
         out = kernels.flash_attention(x, x, x, mask.to(card), causal=causal)
     assert out.grad_fn is None and kernels.flash_attention.launches == before + 1
+
+
+# -- training and the model-parallel core on the card ------------------------------
+
+# f32, heads of 32, and sequences over the flash gate (L > 256), so every
+# attention on the card takes the kernel (f32<32>)
+_PAR_CFG = dict(vocab_size=512, hidden=64, layers=2, heads=4, mlp_dim=128, max_len=512,
+                causal=True, pooling="none", dtype="float32")
+
+
+def _par_batch(rows, length, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, _PAR_CFG["vocab_size"], (rows, length), generator=gen)
+    mask = torch.ones((rows, length), dtype=torch.int32)
+    mask[-1, length - 37:] = 0
+    return ids, mask, torch.roll(ids, -1, dims=1)
+
+
+def _tree_to(tree, device):
+    from pathway_tpu_torch.models.transformer import _leaves, _rebuild
+
+    return _rebuild(tree, (p.to(device) for p in _leaves(tree)))
+
+
+def _leaf_err(got, want) -> float:
+    from pathway_tpu_torch.models.transformer import _leaves
+
+    return max(
+        (a.float().cpu() - b.float().cpu()).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        for a, b in zip(_leaves(got), _leaves(want), strict=True)
+    )
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One step's loss and gradients on the card (flash forward, recomputed
+    plain backward) against the CPU path's, f32: each gradient leaf within
+    1e-3 of its largest |g|, the loss within 1e-5 relative; 2 flash
+    launches (one a layer)."""
+    from pathway_tpu_torch.models.training import loss_and_grads
+    from pathway_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(**_PAR_CFG)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    ids, mask, labels = _par_batch(4, 320)
+    want_loss, want = loss_and_grads(params, cfg, ids, mask, labels)
+    before = kernels.flash_attention.launches
+    loss, got = loss_and_grads(_tree_to(params, card), cfg, ids, mask, labels)
+    assert kernels.flash_attention.launches == before + cfg.layers
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    assert _leaf_err(got, want) <= 1e-3
+
+
+def test_sharded_train_step_on_card_matches_cpu(card):
+    """make_sharded_train_step over a (dp = 2, tp = 2) mesh laid on the one
+    card against the same mesh over the CPU, f32: the loss within 1e-5
+    relative, each gathered new param within 1e-6 of its leaf's largest;
+    2 x 2 x 2 flash launches."""
+    from pathway_tpu_torch.models import training
+    from pathway_tpu_torch.models.transformer import init_params, tp_gather
+    from pathway_tpu_torch.parallel import get_mesh
+
+    cfg = TransformerConfig(**_PAR_CFG)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = _par_batch(4, 320)
+    out = {}
+    for where in ("cpu", "cuda:0"):
+        mesh = get_mesh((2, 2), ("dp", "tp"), devices=[where] * 4)
+        step, place_params, place_batch = training.make_sharded_train_step(mesh, cfg, 1e-3)
+        before = kernels.flash_attention.launches
+        new, loss = step(place_params(params), *place_batch(*batch))
+        if where != "cpu":
+            assert kernels.flash_attention.launches == before + 2 * 2 * cfg.layers
+            assert loss.device.type == "cuda"
+        out[where] = (tp_gather(new, cfg, mesh), float(loss))
+    assert abs(out["cuda:0"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+    assert _leaf_err(out["cuda:0"][0], out["cpu"][0]) <= 1e-6
+
+
+@pytest.mark.parametrize("attn", ["ring", "ulysses"])
+def test_sequence_parallel_forward_on_card_matches_cpu(card, attn):
+    """sequence_parallel_forward over an sp = 4 mesh laid on the one card
+    against the same mesh over the CPU, f32 logits atol 1e-4; Ulysses
+    attends through flash (one launch a layer a position), ring never."""
+    from pathway_tpu_torch.models.long_context import sequence_parallel_forward
+    from pathway_tpu_torch.models.transformer import init_params
+    from pathway_tpu_torch.parallel import get_mesh
+
+    cfg = TransformerConfig(**_PAR_CFG)
+    params = init_params(torch.Generator().manual_seed(1), cfg)
+    ids, mask, _ = _par_batch(2, 512)
+    out = {}
+    for where in ("cpu", "cuda:0"):
+        mesh = get_mesh((4,), ("sp",), devices=[where] * 4)
+        before = kernels.flash_attention.launches
+        with torch.no_grad():
+            out[where] = sequence_parallel_forward(
+                _tree_to(params, where), cfg, ids, mask, mesh, attn=attn
+            ).cpu()
+        if where != "cpu":
+            want = 4 * cfg.layers if attn == "ulysses" else 0
+            assert kernels.flash_attention.launches == before + want
+    np.testing.assert_allclose(out["cuda:0"].numpy(), out["cpu"].numpy(), atol=1e-4, rtol=0)

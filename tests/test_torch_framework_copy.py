@@ -181,17 +181,10 @@ def _tree(path: str, *, port: bool) -> str:
     return ast.dump(_strip_docstrings(ast.parse(src)), include_attributes=False)
 
 
-# the JAX package's modules that the port has no counterpart for: training
-# and the device mesh (internals/mesh_backend.py is a counterpart, in
-# EDITED: its device half raises)
-UNPORTED = {
-    "models/long_context.py",
-    "models/training.py",
-    "parallel/__init__.py",
-    "parallel/mesh.py",
-    "parallel/multichip_checks.py",
-    "parallel/ring_attention.py",
-}
+# the JAX package's modules that the port has no counterpart for: the
+# multichip checks of the data-plane mesh (internals/mesh_backend.py is a
+# counterpart, in EDITED: its device half raises)
+UNPORTED = {"parallel/multichip_checks.py"}
 
 
 def _modules(pkg: str) -> set:
@@ -202,7 +195,7 @@ def _modules(pkg: str) -> set:
     return out
 
 
-def test_the_unported_modules_are_training_and_the_mesh():
+def test_the_unported_module_is_the_multichip_checks():
     assert _modules(JAX_PKG) - _modules(PORT_PKG) == UNPORTED
     assert "internals/mesh_backend.py" in EDITED
 

@@ -9,7 +9,11 @@ encode + DeviceKnnIndex.search_keys, FusedEmbedSearch.search_texts, then
 the knn_topk kernel alone at four (Q, k) shapes), and of the decoder
 (ChatModel("mistral-7b", max_len=2048) at full width, 8 prompts of
 700-1000 words as in chip_smoke.py: the prefill, then 8 KV-cached decode
-steps at batch 8) it runs
+steps at batch 8), and of training (make_train_step and
+make_sharded_train_step over a (dp = 2, tp = 2) mesh on the one card at
+MiniLM-L6 width on 16 texts of 512 tokens, then sequence_parallel_forward
+at Mistral-7B geometry over [1, 4096], ring and Ulysses at sp = 4, as in
+chip_smoke.py phase 15) it runs
 the phase once to warm up, then once under torch.profiler, and prints one
 JSON line: the wall time (host clock, ending in a synchronise), the host
 time of the tokenize / pack step alone, the device's busy time (the union of
@@ -166,7 +170,57 @@ def main() -> int:
               lambda q=q, k=k: knn_topk(rows, live, q, k, metric="ip"), device)
     del encoder, index, fused, rows, live
     trace_decoder(args.decoder, device)
+    trace_training(device)
     return 0
+
+
+def trace_training(device: torch.device) -> None:
+    """One step of make_train_step and of make_sharded_train_step, then
+    sequence_parallel_forward with ring and with Ulysses attention; at
+    tiny sizes on the CPU (the rehearsal)."""
+    import dataclasses
+    import gc
+
+    from pathway_tpu_torch.models.long_context import sequence_parallel_forward
+    from pathway_tpu_torch.models.training import make_sharded_train_step, make_train_step
+    from pathway_tpu_torch.models.transformer import MINILM_L6, MISTRAL_7B, init_params
+    from pathway_tpu_torch.parallel import get_mesh
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rows, length, sp_len = (4, 64, 256) if device.type == "cpu" else (16, 512, 4096)
+    config = dataclasses.replace(MINILM_L6, causal=True, pooling="none", max_len=length)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    params = init_params(gen, config)
+    ids = torch.randint(0, config.vocab_size, (rows, length), device=device, generator=gen)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    labels = torch.roll(ids, -1, dims=1)
+    step = make_train_step(config, 1e-3)
+    trace(f"train step [{rows}, {length}]", lambda: step(params, ids, mask, labels), device)
+    mesh = get_mesh((2, 2), ("dp", "tp"), devices=[device] * 4)
+    sharded, place_params, place_batch = make_sharded_train_step(mesh, config, 1e-3)
+    shards, batch = place_params(params), place_batch(ids, mask, labels)
+    trace(f"sharded train step [{rows}, {length}] over dp 2 x tp 2",
+          lambda: sharded(shards, *batch), device)
+    del params, shards, batch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    config = MISTRAL_7B
+    if device.type == "cpu":
+        config = dataclasses.replace(config, vocab_size=512, hidden=256, layers=2, heads=4,
+                                     mlp_dim=512, max_len=sp_len)
+    params = init_params(gen, config)
+    ids = torch.randint(0, config.vocab_size, (1, sp_len), device=device, generator=gen)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    mesh = get_mesh((4,), ("sp",), devices=[device] * 4)
+    with torch.no_grad():
+        for attn in ("ring", "ulysses"):
+            trace(f"sequence_parallel_forward {attn} [1, {sp_len}] sp 4",
+                  lambda attn=attn: sequence_parallel_forward(params, config, ids, mask, mesh,
+                                                              attn=attn), device)
 
 
 def trace_decoder(model: str, device: torch.device) -> None:
@@ -214,4 +268,11 @@ def trace_decoder(model: str, device: torch.device) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # after the torn-down CUPTI sessions of the 7B forwards the interpreter's
+    # exit never returned (an H100, torch 2.11); every line is out by now,
+    # so leave without the exit handlers. Kept up, CUPTI dropped the
+    # kernel records of later sessions.
+    os._exit(code)
