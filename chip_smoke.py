@@ -147,9 +147,29 @@ width with random weights from a seed:
      peak memory under 1.5x the params (replication copies nothing); (d)
      flash at those shapes against the plain version and
      scaled_dot_product_attention;
+ 16. the data-plane mesh, run after 15 and before 13, on meshes laid on
+     the one card: (a) phase 9a's workload under pw.run(mesh="dp=2,tp=2")
+     inside with_mesh(get_mesh((2, 2), ("dp", "tp"), devices=["cuda:0"] *
+     4)): the backend active for the run only, the DevicePipeline's 2
+     replicas holding every doc, each answer against 9a's unsharded one
+     (near-ties aside; scores within 2e-2), docs/s and p50 / p90 beside
+     9a's, knn_topk once a shard a query batch; (b) DeviceKnnIndex over a
+     ("knn",) mesh of 2 positions at 2^20 live rows of width 384 beside the
+     unsharded index of the same rows: the same slots, the same sets at k =
+     6 for 32 queries, knn_topk launched twice a batch, device ms of both;
+     (c) the 7B decoder tensor-parallel over tp = 2 (decoder_tp_split),
+     phase 6's prompts and 32 greedy tokens: prefill and every step's
+     logits against the unsharded decoder over the same tokens (row
+     cosine >= 0.999), flash_fwd_bf16<128> 64 times a prefill, ms a step
+     beside phase 6's, the peak memory; (d) SentenceEncoder(mesh=dp 2)
+     over phase 5's docs at L = 512 against the unsharded encode (row
+     cosine >= 0.9999), flash_fwd_bf16<32> 12 times an encode; (e)
+     parallel/multichip_checks.run_all(4, devices=["cuda:0"] * 4); then
+     flash at a tp position's [8, 16, L, 128] and a dp position's [32, 12,
+     512, 32];
  11. the card's line, one `kernels` JSON line (launches_by_path per phase,
-     "operability", "declarative" and phase 15's included), then the `ok`
-     JSON line.
+     "operability", "declarative", phase 15's and "mesh" included), then
+     the `ok` JSON line.
 
 Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
 (wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
@@ -1232,20 +1252,20 @@ def _ask(query_q, resp_q, runner, text: str):
     return _get(resp_q, runner, timeout=120.0)
 
 
-def _drive_retrieval(docs, docs_path: str, device) -> dict:
+def _drive_retrieval(docs, docs_path: str, device, run_kwargs=None) -> dict:
     """bench.py's _drive: one streaming run. docs/s is the docs over the
     time from the engine's start to the answer of a probe query for the
     last doc; then 32 sequential queries, each its own engine batch, and
-    64 concurrent ones."""
+    64 concurrent ones. run_kwargs go to pw.run."""
+    from pathway_tpu_torch.internals import mesh_backend, utilization
     from pathway_tpu_torch.internals import runner as pw_runner
-    from pathway_tpu_torch.internals import utilization
 
     query_q: queue.Queue = queue.Queue()
     resp_q: queue.Queue = queue.Queue()
     count_q: queue.Queue = queue.Queue()
     t_start = time.perf_counter()
     runner = _PhaseThread(
-        _retrieval_pipeline, (docs_path, len(docs), query_q, resp_q, count_q, device)
+        _retrieval_pipeline, (docs_path, len(docs), query_q, resp_q, count_q, device, run_kwargs)
     )
     runner.start()
     while True:
@@ -1254,6 +1274,7 @@ def _drive_retrieval(docs, docs_path: str, device) -> dict:
             break
     t_ingested, result = _ask(query_q, resp_q, runner, docs[-1])
     window = utilization.tracker().snapshot()  # the ingest's bound state
+    backend = mesh_backend.active_backend()  # the run's, while it runs
     top = result.value[0] if result.value else None
     check(top is not None and top["text"] == docs[-1],
           f"the probe query for the last doc found {top} at rank 1")
@@ -1264,6 +1285,10 @@ def _drive_retrieval(docs, docs_path: str, device) -> dict:
         t_resp, res = _ask(query_q, resp_q, runner, q)
         lat.append((t_resp - tq) * 1000)
         answers.append(res.value)
+    # the health controller as the sequential queries left it
+    from pathway_tpu_torch.internals import health
+
+    throttle = {k: health.controller().status()[k] for k in ("throttle_delay_s", "backpressure_scale")}
     n_concurrent = 64
     tq0 = time.perf_counter()
     for q in make_docs(n_concurrent, random.Random(17)):
@@ -1281,7 +1306,19 @@ def _drive_retrieval(docs, docs_path: str, device) -> dict:
             "counted_s": t_counted - t_start, "probe_s": t_ingested - t_counted,
             "p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
             "qps_64": qps, "queries": queries, "answers": answers, "engine": engine,
-            "window": window}
+            "window": window, "backend": backend, "throttle": throttle}
+
+
+def _direct_query_ms(impl, queries) -> float:
+    """p50 ms of the index's own search_texts, one query a call, outside
+    the engine (each call ends in its host copy)."""
+    impl.fused.search_texts(queries[:1], K)
+    times = []
+    for q in queries:
+        t0 = time.perf_counter()
+        impl.fused.search_texts([q], K)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50))
 
 
 def _index_node(engine):
@@ -1303,32 +1340,38 @@ def _write_docs(docs, tmp: str) -> str:
     return docs_path
 
 
-def agrees_with_search_texts(answers, direct, node, k: int) -> tuple:
-    """The engine's answers (lists of {"text", "score"}) against
-    FusedEmbedSearch.search_texts on the same index ((key, score) lists;
-    `node` maps a key to its text): the same top-k, but for swaps that
-    are near-ties, whose scores lie within twice the largest score drift
-    between the two routes (over every doc both returned), plus f32
-    rounding, of the k-th score. Returns (answers equal in order, drift,
-    the near-tie tolerance)."""
-    text_of = {key: row[0] for key, row in node.data_rows.items()}
-    drift, exact, pairs = 0.0, 0, []
-    for ans, row in zip(answers, direct):
-        got = [(d["text"], d["score"]) for d in ans]
-        want = [(text_of[key], score) for key, score in row]
-        check(len(got) == len(want) == k, f"{len(got)} / {len(want)} answers, k = {k}")
+def rankings_agree(got_rows, want_rows, k: int, what: str) -> tuple:
+    """Two routes' top-k answers, each a list per query of (text, score):
+    the same top-k, but for swaps that are near-ties, whose scores lie
+    within twice the largest score drift between the two routes (over
+    every doc both returned), plus f32 rounding, of the k-th score.
+    Returns (answers equal in order, drift, the near-tie tolerance)."""
+    drift, exact = 0.0, 0
+    for got, want in zip(got_rows, want_rows):
+        check(len(got) == len(want) == k, f"{what}: {len(got)} / {len(want)} answers, k = {k}")
         want_score = dict(want)
         drift = max([drift] + [abs(s - want_score[t]) for t, s in got if t in want_score])
-        pairs.append((got, want))
     tie_tol = 2 * drift + 1e-5
-    for r, (got, want) in enumerate(pairs):
+    for r, (got, want) in enumerate(zip(got_rows, want_rows)):
         gk, wk = {t for t, _ in got}, {t for t, _ in want}
         kth = min(got[-1][1], want[-1][1])
         swapped = [s for t, s in got if t not in wk] + [s for t, s in want if t not in gk]
         check(all(abs(s - kth) <= tie_tol for s in swapped),
-              f"query {r}: top-{k} differs from search_texts beyond near-ties: {got} vs {want}")
+              f"query {r}: top-{k} differs from {what} beyond near-ties: {got} vs {want}")
         exact += [t for t, _ in got] == [t for t, _ in want]
     return exact, drift, tie_tol
+
+
+def agrees_with_search_texts(answers, direct, node, k: int) -> tuple:
+    """The engine's answers (lists of {"text", "score"}) against
+    FusedEmbedSearch.search_texts on the same index ((key, score) lists;
+    `node` maps a key to its text), by `rankings_agree`."""
+    text_of = {key: row[0] for key, row in node.data_rows.items()}
+    return rankings_agree(
+        [[(d["text"], d["score"]) for d in ans] for ans in answers],
+        [[(text_of[key], score) for key, score in row] for row in direct],
+        k, "search_texts",
+    )
 
 
 def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dict:
@@ -1375,6 +1418,7 @@ def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dic
     # search_texts on the same index
     exact, drift, tie_tol = agrees_with_search_texts(
         facts["answers"], impl.fused.search_texts(facts["queries"], K), node, K)
+    direct_ms = _direct_query_ms(impl, facts["queries"])
     win = facts["window"]
     spans = win["span_seconds"]
     log(f"  fs jsonlines ({N_CHUNKS} files, streaming) -> DocumentStore -> BruteForceKnnFactory("
@@ -1393,7 +1437,11 @@ def run_framework_retrieval(card: str, n_docs: int = N_DOCS, device=None) -> dic
         f"{N_QUERIES} sequential answers against one search_texts batch: top-{K} equal in order "
         f"in {exact}/{N_QUERIES}, the rest within near-ties of {tie_tol:.3g} (largest score "
         f"drift {drift:.3g})  ok")
-    summary = {"docs_per_s": facts["docs_per_s"], "p50_ms": facts["p50_ms"]}
+    log(f"  the index's search_texts alone, one query a call: p50 {direct_ms:.2f} ms [{card}]")
+    summary = {"docs_per_s": facts["docs_per_s"], "p50_ms": facts["p50_ms"],
+               "direct_p50_ms": direct_ms,
+               "p90_ms": facts["p90_ms"], "queries": facts["queries"],
+               "answers": [[(d["text"], d["score"]) for d in ans] for ans in facts["answers"]]}
     # the last run's engine stays referenced by `last_engine()`; drop it so
     # the next phases do not run beside its state
     del facts, node, impl
@@ -3265,40 +3313,390 @@ def run_sequence_parallel(card: str, flash_attention) -> dict:
 
 
 def time_flash_training_shapes(flash_attention, reference_attention) -> list:
-    """Flash at phase 15's shapes, causal, against the plain version and
-    scaled_dot_product_attention: the trainer's [16, 12, 512, 32], a tp
-    shard's [8, 6, 512, 32], a Ulysses position's [1, 8, 4096, 128] and
-    the unsharded 7B's [1, 32, 4096, 128] (the last two with 15c's padded
-    tail)."""
+    """Flash at phase 15's shapes, causal: the trainer's [16, 12, 512, 32],
+    a tp shard's [8, 6, 512, 32], a Ulysses position's [1, 8, 4096, 128]
+    and the unsharded 7B's [1, 32, 4096, 128] (the last two with 15c's
+    padded tail)."""
+    return time_flash_shapes(
+        flash_attention, reference_attention,
+        [(16, 12, 512, 32, True, 0), (8, 6, 512, 32, True, 0),
+         (1, 8, SP_LEN, 128, True, SP_PAD), (1, 32, SP_LEN, 128, True, SP_PAD)],
+        seed=151,
+    )
+
+
+def time_flash_shapes(flash_attention, reference_attention, shapes, seed: int,
+                      rel: float = 0.0) -> list:
+    """Flash in bf16 at each (b, h, l, d, causal, padded tail) of `shapes`
+    against the plain version (each element on live rows within phase 3's
+    2e-2 plus `rel` of its value: 2^-6, two bf16 ulps, is phase 6's
+    per-layer rule, for outputs that reach |o| >= 4, where one ulp is
+    2^-5) and scaled_dot_product_attention, with its bound: q, k, v read
+    and the output written once at 3.35 TB/s, or the bf16 products of the
+    pairs it must score (L (L + 1) / 2 a head when causal) at 989
+    TFLOP/s."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(151)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for b, h, l, d in ((16, 12, 512, 32), (8, 6, 512, 32), (1, 8, 4096, 128), (1, 32, 4096, 128)):
+    for b, h, l, d, causal, pad in shapes:
         q, k, v = (torch.randn((b, h, l, d), device="cuda", generator=gen).bfloat16() for _ in range(3))
         mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
-        if l == SP_LEN:
-            mask[:, l - SP_PAD:] = 0
+        if pad:
+            mask[:, l - pad:] = 0
         scale = d ** -0.5
-        err = live_rows_err(flash_attention(q, k, v, mask, causal=True),
-                            reference_attention(q, k, v, mask, scale, True), mask)
-        check(err <= 2e-2, f"flash_attention bf16 causal [{b},{h},{l},{d}]: error {err}")
-        ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=True))
-        plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, True), reps=5, inner=3)
-        library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        pairs = b * h * l * (l + 1) / 2
+        out = flash_attention(q, k, v, mask, causal=causal)
+        ref = reference_attention(q, k, v, mask, scale, causal)
+        err = live_rows_err(out, ref, mask)
+        live = mask.sum(dim=1) > 0
+        share = ((out.float() - ref.float()).abs()[live]
+                 / (2e-2 + rel * ref.float().abs()[live])).max().item()
+        check(share <= 1.0, f"flash_attention bf16 causal={causal} [{b},{h},{l},{d}]: error {err} "
+                            f"({share:.3f} of 2e-2 + {rel} |o|)")
+        ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=causal))
+        plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, causal), reps=5, inner=3)
+        keep = None if causal else mask.bool()[:, None, None, :]
+        library_ms = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep, is_causal=causal))
+        pairs = b * h * l * ((l + 1) / 2 if causal else l)
         nbytes = 4 * q.numel() * 2 + mask.numel() * 4
         byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / BF16_FLOPS * 1e3
-        log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal (flash_fwd_bf16<{d}>): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention(is_causal) "
+        log(f"  flash_attention [{b},{h},{l},{d}] bf16 causal={causal} (flash_fwd_bf16<{d}>): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
             f"{library_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, bf16 "
             f"products {op_ms:.4f}), max |err| {err:.3g}  ok")
         rows.append({
-            "shape": [b, h, l, d], "causal": True, "max_abs_err": err, "ms": ms,
+            "shape": [b, h, l, d], "causal": causal, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": library_ms,
         })
     return rows
+
+
+# -- phase 16: the data-plane mesh ------------------------------------------------
+
+# 16a: the JAX package's tolerance for its tp encoder against the
+# single-device one (tests/test_multichip.py), for the scores
+MESH_SCORE_TOL = 2e-2
+# 16c / 16d: row cosines against the unsharded model. The tp prefill's
+# last-position logits within 0.999. Its decode steps within phase 6's
+# bound for two KV-cached routes of this 7B (0.995): the unsharded
+# decoder over the tp run's tokens sums the row shards' products in
+# another order, and 32 bf16 layers of random weights spread any such
+# reordering (phase 6: f32 attention against bf16 attention, 0.9974)
+TP_LOGIT_COSINE = 0.999
+TP_STEP_COSINE = 0.995
+DP_ENCODE_COSINE = 0.9999
+
+
+def _mesh_on_card(shape, names, device=None):
+    """A mesh over the one card (or `device`), each position the same
+    device."""
+    from pathway_tpu_torch.parallel.mesh import get_mesh
+
+    return get_mesh(shape, names, devices=[device or "cuda:0"] * int(np.prod(shape)))
+
+
+def run_mesh_framework(card: str, base: dict, n_docs: int = N_DOCS, device=None) -> dict:
+    """16a: phase 9a's workload under pw.run(mesh="dp=2,tp=2") inside
+    with_mesh of a (dp = 2, tp = 2) mesh laid on the one card: a warm-up
+    run and a measured one. The backend is active during the run and gone
+    after it, the pipeline has 2 replicas whose rows sum to the docs, the
+    probe doc is found at rank 1, and each of the 32 queries' top-6
+    equals 9a's unsharded answer (`base`) but for near-ties, with every
+    score within MESH_SCORE_TOL of 9a's."""
+    from pathway_tpu_torch.analysis.mesh import MeshSpec
+    from pathway_tpu_torch.internals import health, mesh_backend
+    from pathway_tpu_torch.internals import runner as pw_runner
+    from pathway_tpu_torch.parallel.mesh import with_mesh
+    from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import _FusedKnnIndexImpl
+
+    docs = make_docs(n_docs, random.Random(7))
+    mesh = _mesh_on_card((2, 2), ("dp", "tp"), device)
+    run_kwargs = {"mesh": "dp=2,tp=2"}
+    with tempfile.TemporaryDirectory() as tmp, with_mesh(mesh):
+        docs_path = _write_docs(docs, tmp)
+        warm = _drive_retrieval(docs, docs_path, device, run_kwargs)
+        del warm
+        pw_runner._last_engine = None
+        gc.collect()
+        actions = dict(health.controller().status()["actions"])
+        facts = _drive_retrieval(docs, docs_path, device, run_kwargs)
+        after = health.controller().status()["actions"]
+    backend = facts["backend"]
+    check(backend is not None and (backend.dp, backend.tp) == (2, 2) and backend.mesh is mesh,
+          f"the mesh backend during the run: {backend}")
+    check(mesh_backend.active_backend() is None, "the mesh backend outlived its run")
+    impl = _index_node(facts["engine"]).index
+    check(isinstance(impl, _FusedKnnIndexImpl) and impl.knn.mesh is mesh,
+          "the run's index did not adopt the mesh")
+    check(len(impl.knn) == n_docs and len(impl.knn._blocks) == 2, f"{len(impl.knn)} rows")
+    pipe = impl._pipeline
+    per_replica = [r["rows"] for r in pipe.replica_stats()]
+    check(pipe.replicas == 2 and sum(per_replica) == n_docs,
+          f"pipeline replicas {pipe.replicas}, rows {per_replica}")
+    got = [[(d["text"], d["score"]) for d in ans] for ans in facts["answers"]]
+    check(facts["queries"] == base["queries"], "16a asked other queries than 9a")
+    exact, drift, tie_tol = rankings_agree(got, base["answers"], K, "9a's unsharded answer")
+    check(drift <= MESH_SCORE_TOL, f"scores drift {drift} from 9a's")
+    # the same backend's query path alone, outside the engine
+    with with_mesh(mesh):
+        mesh_backend.activate(MeshSpec.parse("dp=2,tp=2"))
+        try:
+            direct_ms = _direct_query_ms(impl, facts["queries"])
+        finally:
+            mesh_backend.deactivate()
+    win = facts["window"]
+    log(f"  pw.run(mesh='dp=2,tp=2') over ['cuda:0'] * 4, 9a's workload ({n_docs} docs, k = {K}): "
+        f"docs/s {facts['docs_per_s']:.1f} (9a {base['docs_per_s']:.1f}); p50 "
+        f"{facts['p50_ms']:.2f} ms, p90 {facts['p90_ms']:.2f} ms (9a {base['p50_ms']:.2f} / "
+        f"{base['p90_ms']:.2f}), {facts['qps_64']:.1f} qps at 64 concurrent [{card}]")
+    log(f"  backend dp 2 x tp 2 active for the run and gone after it; pipeline replicas 2, rows "
+        f"{per_replica}; probe doc at rank 1; against 9a's unsharded answers: top-{K} equal in "
+        f"order in {exact}/{N_QUERIES}, the rest within near-ties of {tie_tol:.3g}, largest "
+        f"score drift {drift:.3g} (tol {MESH_SCORE_TOL})  ok")
+    log(f"  the ingest's utilization window at the probe's answer: {win['bound_state']}; health "
+        f"controller in the run: {after['throttle'] - actions['throttle']} throttle, "
+        f"{after['relax'] - actions['relax']} relax actions; after the sequential queries the "
+        f"ingest throttle {facts['throttle']['throttle_delay_s']} s a tick, backpressure scale "
+        f"{facts['throttle']['backpressure_scale']}; the index's search_texts alone, one query "
+        f"a call: p50 "
+        f"{direct_ms:.2f} ms (9a's {base['direct_p50_ms']:.2f}) [{card}]")
+    summary = {"docs_per_s": facts["docs_per_s"], "p50_ms": facts["p50_ms"],
+               "p90_ms": facts["p90_ms"], "exact": exact, "drift": drift, "direct_p50_ms": direct_ms}
+    del facts, impl, pipe
+    pw_runner._last_engine = None
+    gc.collect()
+    return summary
+
+
+def run_sharded_index(card: str, knn_topk, reference_knn_topk, n_rows: int = N_INDEX) -> dict:
+    """16b: DeviceKnnIndex over a ("knn",) mesh of 2 positions on the one
+    card, filled with phase 4's 2^20 live rows of width 384 (two shards
+    of 2^19), beside the unsharded index of the same rows: 32 queries
+    (index rows with noise), k = 6, through search_keys. The same slot of
+    every key, each query's own row at rank 1, the sets equal the
+    unsharded index's under knn_sets_agree, knn_topk launched once a
+    shard."""
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    mesh = _mesh_on_card((2,), ("knn",))
+    plain = DeviceKnnIndex(DIM, metric="cos", reserved_space=n_rows)
+    sharded = DeviceKnnIndex(DIM, metric="cos", reserved_space=n_rows, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step = min(1 << 17, n_rows)
+    for s in range(0, n_rows, step):
+        vecs = torch.randn((step, DIM), device="cuda", generator=gen)
+        plain.add_batch(range(s, s + step), vecs)
+        sharded.add_batch(range(s, s + step), vecs)
+    torch.cuda.synchronize()
+    half = n_rows // 2
+    check(len(sharded) == n_rows and sharded.capacity == n_rows
+          and [tuple(b.shape) for b in sharded._blocks] == [(half, DIM)] * 2,
+          "the sharded index is not two shards of 2^19 live rows")
+    check(sharded._slot_of_key == plain._slot_of_key, "the sharded index placed keys elsewhere")
+    picks = random.Random(7).sample(range(n_rows), N_QUERIES)
+    at = torch.tensor([plain._slot_of_key[p] for p in picks], device="cuda")
+    queries = plain._blocks[0][at] + 0.01 * torch.randn((N_QUERIES, DIM), device="cuda", generator=gen)
+    knn_topk.launches = 0
+    t0 = time.perf_counter()
+    rows = sharded.search_keys(queries, K)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = knn_topk.launches
+    check(launches == 2, f"the sharded search launched knn_topk {launches} times, not once a shard")
+    t0 = time.perf_counter()
+    plain_rows = plain.search_keys(queries, K)
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    hits = sum(1 for r, want in zip(rows, picks) if r and r[0][0] == want)
+    check(hits == N_QUERIES, f"sharded search: {hits}/{N_QUERIES} own rows at rank 1")
+    ss, si, _ = sharded.search(queries, K)
+    ps, pi, _ = plain.search(queries, K)
+    knn_sets_agree(*(torch.from_numpy(np.asarray(a)) for a in (ss, si, ps, pi)))
+    err = float(np.abs(np.sort(ss, 1) - np.sort(ps, 1)).max())
+    check(err <= 1e-4, f"sharded scores differ from the unsharded by {err}")
+    check(plain_rows and all(r[0][0] == w for r, w in zip(plain_rows, picks)), "unsharded rank 1")
+    padded = torch.nn.functional.normalize(queries, dim=1).contiguous()
+    sharded_ms = median_ms(lambda: sharded._top_k(padded, K))
+    plain_ms = median_ms(lambda: plain._top_k(padded, K))
+    log(f"  DeviceKnnIndex over ('knn',) x 2 on the card, {n_rows} live rows of width {DIM} (two "
+        f"shards of {half}), {N_QUERIES} queries, k = {K}: {hits}/{N_QUERIES} own rows at rank 1, "
+        f"sets equal the unsharded index's (max |score err| {err:.3g}), knn_topk {launches} "
+        f"launches a batch  ok")
+    log(f"  search_keys wall {wall_ms:.2f} ms sharded, {plain_wall_ms:.2f} ms unsharded (first "
+        f"calls); device {sharded_ms:.4f} ms sharded (2 kernels of 2^19 rows + the merge), "
+        f"{plain_ms:.4f} ms unsharded (1 kernel of 2^20) [{card}]")
+    shape = time_knn(knn_topk, reference_knn_topk, sharded._blocks[0], sharded._valid_blocks[0],
+                     padded, K)
+    shape.update({"N": half, "launches": launches, "path": "mesh (16b, a shard)"})
+    del plain, sharded, queries, padded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shape": shape, "sharded_ms": sharded_ms, "plain_ms": plain_ms}
+
+
+def _gathered(logits):
+    """A tp run's vocab slices of the logits side by side, or a tree's
+    logits as they are."""
+    return torch.cat(logits, dim=-1) if isinstance(logits, list) else logits
+
+
+def _teacher_forced(params, cfg, ti, tm, toks) -> list:
+    """Each step's logits [B, V] (f32) of a KV-cached run that feeds the
+    tokens `toks` [B, T]: the prefill's last live position, then T - 1
+    decode steps. params: a tree or a list of tp trees."""
+    from pathway_tpu_torch.models.decoder import decoder_forward, init_kv_cache
+
+    b, l = ti.shape
+    tp = len(params) if isinstance(params, list) else 1
+    trees = params if isinstance(params, list) else [params]
+    caches = [init_kv_cache(cfg, b, tree["ln_f"].device, tp=tp) for tree in trees]
+    cache = caches if isinstance(params, list) else caches[0]
+    kv_valid = torch.zeros((b, cfg.max_len), dtype=torch.int32, device=ti.device)
+    kv_valid[:, :l] = tm
+    lengths = tm.sum(1)
+    rows = torch.arange(b, device=ti.device)
+    ones = torch.ones((b, 1), dtype=torch.long, device=ti.device)
+    out = []
+    with torch.no_grad():
+        logits, _ = decoder_forward(params, cfg, ti, tm, positions=tm.cumsum(1) - 1,
+                                    kv_cache=cache, kv_valid=kv_valid)
+        out.append(_gathered(logits)[rows, lengths - 1])
+        for t in range(toks.shape[1] - 1):
+            kv_valid[:, l + t] = 1
+            logits, _ = decoder_forward(params, cfg, toks[:, t : t + 1], ones,
+                                        positions=(lengths + t)[:, None], kv_cache=cache,
+                                        kv_valid=kv_valid, slot_offset=l + t)
+            out.append(_gathered(logits)[:, 0])
+    return out
+
+
+def run_tp_decode(card: str, flash_attention, base_step_ms: float) -> dict:
+    """16c: the 7B decoder tensor-parallel over tp = 2 on ["cuda:0"] * 2,
+    phase 6's 8 prompts and 32 new tokens, greedy. The prefill's
+    last-position logits against the unsharded decoder's (row cosine >=
+    TP_LOGIT_COSINE) and its first token (equal, or a near-tie that the
+    logits' difference decides); the unsharded decoder_forward over the
+    tokens the sharded run generated, each step's logits against the
+    sharded run's (cosine >= TP_STEP_COSINE); flash_fwd_bf16<128> 64
+    times a prefill (32 layers x 2 positions); ms a decode step beside
+    phase 6's, and the peak memory."""
+    from pathway_tpu_torch.models.decoder import decoder_tp_split, generate_tokens
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    chat = ChatModel("mistral-7b", max_len=2048, seed=0)
+    cfg, params = chat.config, chat.params
+    shards = decoder_tp_split(params, cfg, _mesh_on_card((2,), ("tp",)))
+    check(tuple(shards[0]["layers"][0]["wk"].shape) == (cfg.hidden, cfg.kv_heads // 2 * cfg.head_dim),
+          "the tp shard does not hold half of the kv heads")
+    prompts = make_prompts(8, random.Random(11), 700, 1000)
+    steps = 32
+    ids, mask = chat.encode_prompts(prompts, steps)
+    dev = params["embed"].device
+    ti, tm = torch.from_numpy(ids).long().to(dev), torch.from_numpy(mask).long().to(dev)
+    b, l = ti.shape
+    flash_attention.launches = 0
+    toks = generate_tokens(shards, cfg, ids, mask, max_new_tokens=steps)
+    launches = flash_attention.launches
+    check(launches == 2 * cfg.layers,
+          f"the tp prefill launched flash {launches} times, not {2 * cfg.layers}")
+    forced = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    sharded = _teacher_forced(shards, cfg, ti, tm, forced)
+    unsharded = _teacher_forced(params, cfg, ti, tm, forced)
+    prefill_cos = logit_cosine(sharded[0], unsharded[0])
+    check(prefill_cos >= TP_LOGIT_COSINE, f"tp prefill logits: min row cosine {prefill_cos}")
+    # the first token: the unsharded argmax, or a near-tie within the
+    # largest difference between the two runs' logits
+    diff = (sharded[0] - unsharded[0]).abs().max().item()
+    first = unsharded[0].argmax(-1)
+    picked = unsharded[0].gather(1, forced[:, :1])[:, 0]
+    exact = int((forced[:, 0] == first).sum())
+    check(bool(((forced[:, 0] == first) | (unsharded[0].max(-1).values - picked <= 2 * diff)).all()),
+          f"tp first tokens {forced[:, 0].tolist()} against unsharded {first.tolist()}")
+    step_cosines = [logit_cosine(a, c) for a, c in zip(sharded, unsharded)]
+    step_cos = min(step_cosines)
+    check(step_cos >= TP_STEP_COSINE, f"tp decode steps: min logit cosine {step_cos}")
+    del sharded, unsharded
+    t_prefill, t_all = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        generate_tokens(shards, cfg, ids, mask, max_new_tokens=1)
+        t_prefill.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        generate_tokens(shards, cfg, ids, mask, max_new_tokens=steps)
+        t_all.append(time.perf_counter() - t0)
+    t_pre, t_gen = float(np.median(t_prefill)), float(np.median(t_all))
+    step_ms = (t_gen - t_pre) / (steps - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  7B decoder over tp = 2 on ['cuda:0'] * 2: 8 prompts of {int(mask.sum(1).min())}-{l} "
+        f"tokens, {steps} new tokens; prefill last-position logits against the unsharded: min "
+        f"row cosine {prefill_cos:.6f}; first tokens equal in {exact}/{b} (max |logit diff| "
+        f"{diff:.3g}); the unsharded decoder over the tp run's tokens, each step's logits: min "
+        f"cosine {step_cos:.6f}, median {float(np.median(step_cosines)):.6f} (tol "
+        f"{TP_STEP_COSINE}); flash_fwd_bf16<128> {launches} a prefill  ok")
+    log(f"  tp prefill {t_pre * 1e3:.1f} ms, decode {step_ms:.2f} ms a step at batch {b} (phase 6 "
+        f"unsharded {base_step_ms:.2f}); peak device memory {peak / 2**30:.2f} GiB (the shards "
+        f"are views of the 7B's weights) [{card}]")
+    del chat, params, shards, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "l": l, "step_ms": step_ms, "prefill_ms": t_pre * 1e3,
+            "peak_bytes": peak}
+
+
+def run_dp_encoder(card: str, flash_attention) -> dict:
+    """16d: SentenceEncoder(mesh=dp 2 on ["cuda:0"] * 2) over phase 5's
+    256 docs at L = 512, in batches of 64 (32 rows a dp position), against
+    the unsharded encode of the same weights: row cosine >=
+    DP_ENCODE_COSINE, flash_fwd_bf16<32> 6 layers x 2 positions an
+    encode."""
+    from pathway_tpu_torch.models.minilm import SentenceEncoder
+
+    mesh = _mesh_on_card((2,), ("dp",))
+    sharded = SentenceEncoder("all-MiniLM-L6-v2", max_len=512, seed=0, mesh=mesh)
+    plain = SentenceEncoder("all-MiniLM-L6-v2", max_len=512, seed=0)
+    docs = make_docs(256, random.Random(3), words=520)
+    batches = [docs[s : s + 64] for s in range(0, len(docs), 64)]
+    sharded.encode(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    got = [sharded.encode(batch) for batch in batches]
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    check(launches == len(batches) * 6 * 2,
+          f"the dp encodes launched flash {launches} times, not {len(batches) * 12}")
+    t0 = time.perf_counter()
+    want = [plain.encode(batch) for batch in batches]
+    plain_wall = time.perf_counter() - t0
+    cos = min(float(cosine_rows(g, w).min()) for g, w in zip(got, want))
+    check(all(np.isfinite(g).all() and g.shape == (64, DIM) for g in got), "dp encode: bad output")
+    check(cos >= DP_ENCODE_COSINE, f"dp encode vs unsharded: min row cosine {cos}")
+    log(f"  SentenceEncoder(mesh=dp 2 on ['cuda:0'] * 2), {len(docs)} docs at L = 512: "
+        f"{len(docs) / wall:.1f} docs/s (unsharded {len(docs) / plain_wall:.1f}); min row cosine "
+        f"to the unsharded encode {cos:.7f}; flash_fwd_bf16<32> {launches} launches "
+        f"({launches // len(batches)} an encode)  ok [{card}]")
+    del sharded, plain
+    gc.collect()
+    return {"launches": launches}
+
+
+def run_multichip_checks(card: str, knn_topk) -> dict:
+    """16e: the JAX package's four multichip checks, ported, over four
+    positions of the one card; the retrieval parity is exact (`==`)."""
+    from pathway_tpu_torch.parallel import multichip_checks
+
+    knn_topk.launches = 0
+    t0 = time.perf_counter()
+    facts = multichip_checks.run_all(4, devices=["cuda:0"] * 4)
+    launches = knn_topk.launches
+    check(launches > 0, "the sharded retrieval check launched no knn_topk")
+    log(f"  multichip_checks.run_all(4, devices=['cuda:0'] * 4): {json.dumps(facts)}; the sharded "
+        f"retrieval equals the dense one (==); knn_topk {launches} launches; "
+        f"{time.perf_counter() - t0:.1f} s  ok [{card}]")
+    return {"launches": launches}
 
 
 # -- phase 8: the framework path on the card's host ------------------------------
@@ -3502,7 +3900,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     knn_topk.launches = 0
     flash_attention.launches = 0
-    run_framework_retrieval(card)
+    base_9a = run_framework_retrieval(card)
     retrieval_launches = {"knn_topk": knn_topk.launches, "flash_attention": flash_attention.launches}
     log(f"  launches on the framework retrieval path: knn_topk {knn_topk.launches} (the fused "
         f"search is dense similarity + top-k, as the JAX package's), flash_attention "
@@ -3608,6 +4006,52 @@ def main() -> int:
         flash_row["launches_by_path"][path] = n
         knn_row["launches_by_path"][path] = 0
     log(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+
+    # phase 16 runs after 15 and before 13, so 13a's check that earlier
+    # phases let go of what they held covers it too
+    log("[16] the data-plane mesh on the card, before phase 13")
+    _collect_earlier_phases()
+    t_phase = time.perf_counter()
+    log("[16a] 9a's workload under pw.run(mesh='dp=2,tp=2')")
+    knn_topk.launches = 0
+    flash_attention.launches = 0
+    run_mesh_framework(card, base_9a)
+    mesh_knn = {"16a": knn_topk.launches}
+    mesh_flash = {"16a": flash_attention.launches}
+    check(knn_topk.launches > 0, "the mesh framework path launched no knn_topk")
+    log(f"  launches on 16a: knn_topk {knn_topk.launches} (one a shard a query batch), "
+        f"flash_attention {flash_attention.launches} (L = 64, under the flash gate)")
+    _collect_earlier_phases()
+    log("[16b] the sharded index at 2^20 rows, two shards")
+    flash_attention.launches = 0
+    index16 = run_sharded_index(card, knn_topk, reference_knn_topk)
+    mesh_knn["16b"], mesh_flash["16b"] = index16["launches"], flash_attention.launches
+    log("[16c] tensor-parallel decode at full Mistral-7B width, tp = 2")
+    knn_topk.launches = 0
+    tp16 = run_tp_decode(card, flash_attention, 8 / decoder["decode_tokens_per_s"] * 1e3)
+    mesh_knn["16c"], mesh_flash["16c"] = knn_topk.launches, tp16["launches"]
+    log("[16d] SentenceEncoder(mesh=dp 2) at L = 512")
+    knn_topk.launches = 0
+    dp16 = run_dp_encoder(card, flash_attention)
+    mesh_knn["16d"], mesh_flash["16d"] = knn_topk.launches, dp16["launches"]
+    log("[16e] the multichip checks over four positions of the card")
+    flash_attention.launches = 0
+    checks16 = run_multichip_checks(card, knn_topk)
+    mesh_knn["16e"], mesh_flash["16e"] = checks16["launches"], flash_attention.launches
+    _collect_earlier_phases()
+    knn_row["shapes"].append(index16["shape"])
+    mesh_shapes = time_flash_shapes(
+        flash_attention, reference_attention,
+        [(8, 16, tp16["l"], 128, True, 0), (32, 12, 512, 32, False, 0)], seed=161, rel=2.0 ** -6)
+    for row, n, path in zip(mesh_shapes, (tp16["launches"], dp16["launches"]),
+                            ("mesh (16c, a tp position's prefill)", "mesh (16d, a dp position)")):
+        row.update({"launches": n, "path": path})
+    flash_row["shapes"] += mesh_shapes
+    knn_row["launches_by_path"]["mesh"] = sum(mesh_knn.values())
+    flash_row["launches_by_path"]["mesh"] = sum(mesh_flash.values())
+    knn_row["mesh_by_phase"], flash_row["mesh_by_phase"] = mesh_knn, mesh_flash
+    log(f"  launches on the mesh paths: knn_topk {json.dumps(mesh_knn)}, flash_attention "
+        f"{json.dumps(mesh_flash)}; phase 16 {time.perf_counter() - t_phase:.1f} s")
 
     # phase 13 runs after 14 and 15 and before 8, as 9 does: the wordcount's
     # engine is not to weigh on it

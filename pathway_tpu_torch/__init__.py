@@ -47,7 +47,14 @@ the standard library, never JAX and nothing of `pathway_tpu`. It holds
   * training (models/training.py: the step, and the step over a
     ("dp", "tp") mesh with Megatron tensor parallelism) and sequence
     parallelism (models/long_context.py over parallel/: ring and
-    Ulysses attention), on a single-controller mesh of torch devices.
+    Ulysses attention), on a single-controller mesh of torch devices;
+  * the data-plane mesh on that mesh: ``pw.run(mesh="dp=2,tp=2")``
+    (internals/mesh_backend.py, its devices those of the mesh
+    ``parallel.mesh.with_mesh`` holds, else the process's CUDA devices),
+    the row-sharded KNN index searched shard by shard through knn_topk,
+    the dp-packed and tp-sharded encoder (``SentenceEncoder(mesh=)``,
+    ``TransformerLM.mesh_params``), tensor-parallel decode
+    (``decoder_tp_split``) and parallel/multichip_checks.py.
 
 Usage mirrors the JAX package::
 
@@ -62,10 +69,7 @@ Usage mirrors the JAX package::
 
 Device entry points take ``device=None``, meaning the CUDA card;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
-Not ported yet: the data-plane mesh (the sharded KNN index and its
-fused search, ``SentenceEncoder(mesh=)``, tensor-parallel decode, the
-device half of internals/mesh_backend.py behind ``pw.run(mesh=...)``,
-and parallel/multichip_checks.py).
+Every module of the JAX package has its counterpart here.
 """
 
 from __future__ import annotations

@@ -1,18 +1,39 @@
-"""Mesh execution backend: the process-wide mesh that `pw.run(mesh=...)`
-publishes, read by the health controller, the device pipeline, the cost
-ledger and /status.
+"""Mesh execution backend: `pw.run(mesh=...)` as a real device mesh.
 
-The port has no device mesh yet (ROADMAP: Queue 1, mesh, sharded and
-ring paths): `pw.run(mesh=...)` raises before it would activate one, and
-`activate()` raises, so `active_backend()` is always None and every
-reader takes its single-device branch. The backend's bookkeeping
-(straggler detection, replica drain and re-admit, dp routing,
-`pack_batch_dp`) is kept as the JAX package has it, for the slice that
-builds the mesh on `torch.distributed`.
+`activate()` builds a single-controller `parallel.mesh.Mesh` of torch
+devices (the one `parallel.mesh.with_mesh` holds, or the process's CUDA
+devices) and publishes it process-wide, so the framework ingest path
+picks it up at engine-build time:
+
+  * `stdlib/indexing` index impls adopt the mesh for their
+    `DeviceKnnIndex` row shard (search = per-shard top-k through the
+    knn_topk kernel + a merge of the gathered candidates, the same
+    answers as the single-device path);
+  * `ops/knn.FusedEmbedSearch` packs ingest slabs PER dp SHARD
+    (`pack_batch_dp`) and encodes each replica's block on its dp
+    position through the existing async device pipeline, one in-flight
+    window per dp replica;
+  * `models/transformer.TransformerLM.mesh_params` tp-shards the
+    encoder weights with the partition rules from
+    `param_sharding_rules`, so the matmuls run tensor-parallel.
 
 Exchange <-> device alignment: documents are routed to dp shards by the
 SAME `key.shard % dp` rule the columnar exchange uses for workers
-(`Pointer.shard % worker_count`).
+(`Pointer.shard % worker_count`).  When `workers % dp == 0` every row a
+worker owns lands on one fixed dp replica — this is what turns PWT404
+from an advisory lint into a load-bearing contract.
+
+Degradation rules (documented in ARCHITECTURE.md "Mesh backend"):
+
+  * fewer devices than the spec asks for (and no held mesh) -> the
+    backend stays inactive (warning log) and the mesh remains lint-only;
+  * a non-power-of-two dp axis cannot shard the bucketed batch/index
+    axes -> ingest stays single-device (PWT402 already flags embedder
+    graphs in this state);
+  * a `device_flap` (DeviceMonitor DEGRADED) drains the in-flight
+    pipeline window and routes new ingest through the synchronous host
+    path without losing exactly-once sink semantics — same contract as
+    the single-chip pipeline.
 """
 
 from __future__ import annotations
@@ -46,14 +67,16 @@ SKEW_WINDOW_S = _env_float("PATHWAY_MESH_SKEW_WINDOW_S", 30.0)
 
 
 class MeshBackend:
-    """An activated mesh: the spec, the built device mesh, and
+    """An activated mesh: the spec, the built `parallel.mesh.Mesh`, and
     the dp routing/accounting the ingest path needs."""
 
     def __init__(self, spec, mesh):
+        from pathway_tpu_torch.parallel.mesh import dp_axis
+
         self.spec = spec
         self.mesh = mesh
         names = tuple(mesh.axis_names)
-        self.dp_axis = "dp" if "dp" in names else names[0]
+        self.dp_axis = dp_axis(mesh)
         self.tp_axis = "tp" if "tp" in names else None
         self.dp = int(mesh.shape[self.dp_axis])
         self.tp = int(mesh.shape[self.tp_axis]) if self.tp_axis else 1
@@ -121,9 +144,11 @@ class MeshBackend:
         return self.dp >= 1 and not (self.dp & (self.dp - 1))
 
     def batch_sharding(self):
-        """The [B, L] token slabs' placement: rows over dp, replicated
-        over tp. No device mesh in the port yet."""
-        raise NotImplementedError(_NO_MESH)
+        """NamedSharding for [B, L] token slabs: rows over dp, replicated
+        over tp."""
+        from pathway_tpu_torch.parallel.mesh import NamedSharding, P
+
+        return NamedSharding(self.mesh, P(self.dp_axis, None))
 
     def dp_shard_of(self, key) -> int:
         """dp replica owning `key` — `key.shard % dp`, the engine
@@ -349,16 +374,50 @@ _BACKEND: Optional[MeshBackend] = None
 _lock = threading.Lock()
 
 
-_NO_MESH = (
-    "pathway_tpu_torch has no device mesh yet (ROADMAP: Queue 1, mesh, "
-    "sharded and ring paths)"
-)
-
-
 def activate(spec) -> Optional[MeshBackend]:
-    """Build and publish the mesh for `spec` (a MeshSpec). The port has no
-    device mesh yet, so this raises and no backend is ever published."""
-    raise NotImplementedError(_NO_MESH)
+    """Build and publish the mesh for `spec` (a MeshSpec). The devices are
+    those of the mesh `parallel.mesh.with_mesh` holds, whose axes must be
+    the spec's (else ValueError); without one, the process's CUDA devices.
+    Returns None — leaving the mesh a pure lint target — when there are
+    too few of them."""
+    global _BACKEND
+    import torch
+
+    from pathway_tpu_torch.parallel.mesh import Mesh, held_mesh
+
+    with _lock:
+        need = spec.devices()
+        shape = tuple(count for _, count in spec.axes)
+        names = tuple(name for name, _ in spec.axes)
+        mesh = held_mesh()
+        if mesh is not None:
+            if tuple(mesh.axis_names) != names or tuple(mesh.devices.shape) != shape:
+                raise ValueError(
+                    f"mesh {spec.describe()} does not match the held mesh "
+                    f"{dict(mesh.shape)}: pass the held mesh's axes, or leave with_mesh"
+                )
+        else:
+            devices = (
+                [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if torch.cuda.is_available() else []
+            )
+            if need > len(devices):
+                logger.warning(
+                    "mesh %s needs %d devices but only %d are attached; "
+                    "running single-device (the mesh still arms the PWT4xx "
+                    "analysis lints)",
+                    spec.describe(), need, len(devices),
+                )
+                _BACKEND = None
+                return None
+            mesh = Mesh(np.asarray(devices[:need], dtype=object).reshape(shape), names)
+        _BACKEND = MeshBackend(spec, mesh)
+        from pathway_tpu_torch.internals import memtrack
+
+        if memtrack.ENABLED:
+            # replica layout for per-replica watermarks / placement math
+            memtrack.tracker().set_topology(_BACKEND.dp, _BACKEND.tp)
+        return _BACKEND
 
 
 def deactivate() -> None:

@@ -2,7 +2,9 @@
 (counterpart of pathway_tpu/models/minilm.py).
 
 Batches are bucketed to stable shapes by the tokenizer and encoded in bf16
-on the card; the pooled vectors come back to the host in one copy.
+on the card; the pooled vectors come back to the host in one copy. With a
+mesh, the batch axis shards over its `dp` (or first) axis: each position
+encodes its block of rows on its device.
 """
 
 from __future__ import annotations
@@ -20,11 +22,8 @@ from pathway_tpu_torch.models.tokenizer import (
     pack_batch,
     pack_token_budget,
 )
-from pathway_tpu_torch.models.transformer import (
-    MINILM_L6,
-    TransformerConfig,
-    TransformerLM,
-)
+from pathway_tpu_torch.models.transformer import MINILM_L6, TransformerConfig, TransformerLM
+from pathway_tpu_torch.parallel.mesh import NamedSharding, P, dp_axis, same_device
 
 _model_cache: dict = {}
 
@@ -40,8 +39,32 @@ class SentenceEncoder:
         seed: int = 0,
         max_len: int = 256,
         device=None,
+        mesh=None,
     ):
         self.name = model
+        if mesh is not None:
+            axis = dp_axis(mesh)
+            n_dev = mesh.shape[axis]
+            if n_dev & (n_dev - 1):
+                raise ValueError(
+                    f"SentenceEncoder mesh axis {axis!r} has {n_dev} "
+                    f"devices, which is not a power of two: encode_batch "
+                    f"buckets every batch to a power of two (minimum 8), "
+                    f"so a {n_dev}-way '{axis}' shard would never divide "
+                    f"the batch axis evenly. Use a power-of-two device "
+                    f"count on that axis, or drop the mesh and run the "
+                    f"single-device async pipeline "
+                    f"(PATHWAY_DEVICE_PIPELINE=1, the default)"
+                )
+            # the weights live on the mesh's first device
+            first = mesh.devices.flat[0]
+            if device is not None and not same_device(device, first):
+                raise ValueError(
+                    f"SentenceEncoder: device {device} contradicts the mesh, whose first "
+                    f"device is {first}"
+                )
+            device = first
+        self.mesh = mesh
         params = None
         tokenizer = None
         if hf_loader.is_checkpoint_dir(model):
@@ -77,6 +100,20 @@ class SentenceEncoder:
         if not texts:
             return None
         ids, mask = encode_batch(self.tokenizer, list(texts), max_len=self.max_len)
+        if self.mesh is not None:
+            # data-parallel dispatch: the (bucketed, power-of-two) batch
+            # axis shards over the mesh's dp / first axis, each position
+            # encoding its rows with the weights on its device (replicated,
+            # as the JAX package's are); the pooled blocks come back in order
+            axis = dp_axis(self.mesh)
+            if ids.shape[0] % self.mesh.shape[axis] == 0:
+                sharding = NamedSharding(self.mesh, P(axis, None))
+                blocks = zip(sharding.shard(ids.astype(np.int32)), sharding.shard(mask.astype(np.int32)))
+                pooled = torch.cat([
+                    self.lm(i, m, params=self.lm.params_on(i.device)).to(self.device)
+                    for i, m in blocks
+                ])
+                return (pooled, len(texts))
         return (self.lm(ids, mask), len(texts))
 
     def encode_await(self, handle) -> np.ndarray:
@@ -91,9 +128,11 @@ class SentenceEncoder:
         """Packed ragged encode: docs concatenate into token-budget slabs
         (tokenizer.pack_batch) so the card runs on real tokens instead of
         per-doc pad. Falls back to the classic bucketed `encode` when
-        packing is disabled (PATHWAY_PACK_TOKEN_BUDGET=0)."""
+        packing is disabled (PATHWAY_PACK_TOKEN_BUDGET=0) or a mesh is
+        attached: the mesh path needs the power-of-two batch-axis contract
+        that packed row counts do not honor."""
         budget = pack_token_budget()
-        if budget <= 0 or not texts:
+        if budget <= 0 or self.mesh is not None or not texts:
             return self.encode(texts)
         ids, seg, slots = pack_batch(
             self.tokenizer, list(texts), max_len=self.max_len, token_budget=budget

@@ -25,6 +25,7 @@ from pathway_tpu_torch.models.transformer import (
     _leaves,
     _rebuild,
     _to_device_ints,
+    _tree_to,
     forward,
     tp_forward,
     tp_split,
@@ -100,10 +101,6 @@ def make_train_step(config: TransformerConfig, lr: float = 1e-3):
         return sgd_step(params, grads, lr), loss
 
     return step
-
-
-def _tree_to(tree, device):
-    return _rebuild(tree, (p.to(device) for p in _leaves(tree)))
 
 
 def _device(mesh, **position):

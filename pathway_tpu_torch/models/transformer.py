@@ -20,7 +20,9 @@ PartitionSpecs over a mesh's `tp` axis, `tp_split` / `tp_gather` lay a
 tree out into per-shard trees and back, and `tp_forward` runs `forward`'s
 math Megatron-style over the list of shards, with parallel/collectives.py
 in the place of the collectives XLA's partitioner inserts in the JAX
-package. `TransformerLM.mesh_params` is not ported yet.
+package; `tp_encode` is the pooled encode over them, classic and packed.
+`TransformerLM.mesh_params` caches a mesh's tp shards per dp position, and
+the encoder entry points take them as `params=`.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from pathway_tpu_torch.ops.kernels.flash_attention import (
     reference_attention,
 )
 from pathway_tpu_torch.parallel.collectives import psum
-from pathway_tpu_torch.parallel.mesh import P
+from pathway_tpu_torch.parallel.mesh import P, dp_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,6 +261,13 @@ def forward(
         x = _final_norm(x, params)
     if return_hidden or config.pooling == "none":
         return _tied_logits(x, params)
+    return _pool(x, config, mask, seg, max_segments)
+
+
+def _pool(x, config: TransformerConfig, mask, seg, max_segments: int):
+    """Pooled, L2-normalised rows of the final hidden states x [B, L, H]:
+    one per packed doc slot ([B, max_segments, H]) when seg is given, else
+    the CLS token or the mean over the mask's valid tokens ([B, H])."""
     if seg is not None:
         # per-segment mean pooling: one-hot segment ids contracted over the
         # token axis, [B, L, H] x [B, L, S] -> [B, S, H], summed in x.dtype
@@ -415,27 +424,41 @@ def _sharded_dim(spec) -> Optional[int]:
     return dims[0] if dims else None
 
 
-def tp_split(params, config: TransformerConfig, mesh) -> list:
-    """One tree per position of the mesh's tp axis: each leaf split by its
-    rule (a replicated leaf is the same tensor in every tree). A size that
-    does not divide by tp raises, as JAX's even sharding does."""
-    rules = param_sharding_rules(config, mesh)
-    tp = mesh.shape.get("tp", 1)
+def split_by_rules(params, rules, tp: int, groups=lambda key: 1) -> list:
+    """One tree per position of a tp axis of size `tp`: each leaf split by
+    its rule into `tp` equal blocks along its sharded dim (a replicated
+    leaf is the same tensor in every tree). A leaf whose key has
+    groups(key) > 1 is that many column blocks side by side (qkv's q, k
+    and v), and position t takes the t-th block of each. A block of a
+    one-group leaf is a view of it, so splitting copies nothing; a size
+    that does not divide by tp raises, as JAX's even sharding does."""
     per_leaf = []
     for key, leaf, spec in _leaves_with_specs(params, rules):
         dim = _sharded_dim(spec)
         if dim is None:
             per_leaf.append([leaf] * tp)
             continue
-        groups = 3 if key in _QKV_KEYS else 1
-        if leaf.shape[dim] % (groups * tp):
+        n = groups(key)
+        if leaf.shape[dim] % (n * tp):
             raise ValueError(
                 f"{key} of shape {tuple(leaf.shape)}, sharded {spec}, does not split evenly "
                 f"over the tp axis of size {tp}"
             )
-        blocks = [b.chunk(tp, dim) for b in leaf.chunk(groups, dim)]
+        if n == 1:
+            per_leaf.append(list(leaf.chunk(tp, dim)))
+            continue
+        blocks = [b.chunk(tp, dim) for b in leaf.chunk(n, dim)]
         per_leaf.append([torch.cat([b[t] for b in blocks], dim) for t in range(tp)])
     return [_rebuild(params, iter(leaves)) for leaves in zip(*per_leaf)]
+
+
+def tp_split(params, config: TransformerConfig, mesh) -> list:
+    """One tree per position of the mesh's tp axis: each leaf split by its
+    `param_sharding_rules` rule (`split_by_rules`)."""
+    return split_by_rules(
+        params, param_sharding_rules(config, mesh), mesh.shape.get("tp", 1),
+        groups=lambda key: 3 if key in _QKV_KEYS else 1,
+    )
 
 
 def tp_gather(shards: list, config: TransformerConfig, mesh) -> Dict[str, Any]:
@@ -456,47 +479,107 @@ def tp_gather(shards: list, config: TransformerConfig, mesh) -> Dict[str, Any]:
     return _rebuild(shards[0], iter(leaves))
 
 
-def tp_forward(shards: list, config: TransformerConfig, ids, mask) -> list:
-    """`forward(..., return_hidden=True)` (pre-LN, unpacked) over the tp
-    axis, Megatron-style: one param tree per tp position from `tp_split`,
-    each on its position's device. ids, mask: [B, L], the same batch for
-    every position. Returns each position's logits over its vocab shard,
-    [B, L, V / tp]: the caller reduces them where it needs them (the
-    training loss does so vocab-parallel, never gathering [B, L, V]).
+def _mesh_position(mesh, dp: int = 0, tp: int = 0) -> torch.device:
+    """The device at dp position `dp` and tp position `tp` of a mesh (the
+    other axes at 0); an axis the mesh lacks is at 0. Where the dp axis
+    is `tp` itself (a one-axis `tp` mesh), the tp position decides."""
+    position = {dp_axis(mesh): dp}
+    if "tp" in mesh.axis_names:
+        position["tp"] = tp
+    return mesh.device(**position)
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a param tree (of its final norm's scale)."""
+    return tree["ln_f"]["scale"].device
+
+
+def _tree_to(tree, device):
+    """`tree` with every leaf on `device`; a leaf already there is itself."""
+    return _rebuild(tree, (p.to(device) for p in _leaves(tree)))
+
+
+def vocab_parallel_lookup(shards: list, ids: list, key: str = "embed") -> list:
+    """Rows of a vocab-sharded table: position t holds rows [t * R, (t + 1)
+    * R) of shards[t][key] and looks up only the ids in its range (zeros
+    elsewhere); the psum adds the lookups, so each position gets every
+    row, exactly. ids: one [B, L] tensor per position, on its device."""
+    rows = shards[0][key].shape[0]
+    lookups = []
+    for t, (tree, tid) in enumerate(zip(shards, ids)):
+        local = tid - t * rows
+        hit = (local >= 0) & (local < rows)
+        lookups.append(tree[key][local.clamp(0, rows - 1)] * hit[..., None].to(tree[key].dtype))
+    return psum(lookups)
+
+
+def _tp_hidden(shards: list, config: TransformerConfig, ids, mask, *, seg=None,
+               use_flash: Optional[bool] = None) -> list:
+    """The final-normed hidden states [B, L, H] of `forward` (pre-LN) on
+    every tp position, Megatron-style: one param tree per position from
+    `tp_split`, each on its position's device. ids, mask (or seg for a
+    packed slab): [B, L], the same batch for every position.
 
     qkv and up are column shards (whole heads per shard), out and down row
     shards each followed by a psum; the embedding is vocab-sharded, so a
     shard looks up only the ids in its range and a psum adds the lookups.
-    LayerNorms, pos_embed and the out / down biases are replicated."""
+    LayerNorms, pos_embed and the out / down biases are replicated. A
+    position attends over its own heads, [B, H / tp, L, D]: through flash
+    on the card for L > FLASH_MIN_LEN, or within segments for a slab."""
     if config.norm_style != "pre":
-        raise ValueError("tp_forward runs the pre-LN layout only")
+        raise ValueError("tensor parallelism runs the pre-LN layout only")
     compute_dtype = _compute_dtype(config)
-    devices = [tree["ln_f"]["scale"].device for tree in shards]
+    devices = [_tree_device(tree) for tree in shards]
     tp = len(shards)
     l = ids.shape[1]
-    ids = [ids.long().to(dev) for dev in devices]
-    masks = [mask.to(dev) for dev in devices]
     if config.heads % tp:
         raise ValueError(f"heads {config.heads} not divisible by the tp axis of size {tp}")
-
-    rows = shards[0]["embed"].shape[0]
-    lookups = []
-    for t, tree in enumerate(shards):
-        local = ids[t] - t * rows
-        hit = (local >= 0) & (local < rows)
-        lookups.append(tree["embed"][local.clamp(0, rows - 1)] * hit[..., None])
-    x = [
-        (e + tree["pos_embed"][:l][None, :, :]).to(compute_dtype)
-        for e, tree in zip(psum(lookups), shards)
-    ]
+    ids = [ids.long().to(dev) for dev in devices]
+    if seg is not None:
+        if config.causal:
+            raise ValueError("packed segment batching requires a bidirectional encoder")
+        segs = [seg.long().to(dev) for dev in devices]
+        table = shards[0]["pos_embed"].shape[0]
+        pos = [tree["pos_embed"][_packed_positions(s).clamp(max=table - 1)]
+               for s, tree in zip(segs, shards)]
+    else:
+        masks = [mask.to(dev) for dev in devices]
+        pos = [tree["pos_embed"][:l][None, :, :] for tree in shards]
+    x = [(e + p).to(compute_dtype) for e, p in zip(vocab_parallel_lookup(shards, ids), pos)]
+    hd = config.head_dim
 
     def attend(qs, ks, vs):
-        return [_attention(q, k, v, m, config.causal, None) for q, k, v, m in zip(qs, ks, vs, masks)]
+        if seg is not None:
+            return [_segment_attention(q, k, v, s, 1.0 / np.sqrt(hd))
+                    for q, k, v, s in zip(qs, ks, vs, segs)]
+        return [_attention(q, k, v, m, config.causal, use_flash)
+                for q, k, v, m in zip(qs, ks, vs, masks)]
 
     for i in range(config.layers):
         layers = [tree["layers"][i] for tree in shards]
-        x = _pre_ln_layer(x, layers, attend, config.head_dim, compute_dtype, reduce=psum)
-    return [_tied_logits(_final_norm(xt, tree), tree) for xt, tree in zip(x, shards)]
+        x = _pre_ln_layer(x, layers, attend, hd, compute_dtype, reduce=psum)
+    return [_final_norm(xt, tree) for xt, tree in zip(x, shards)]
+
+
+def tp_forward(shards: list, config: TransformerConfig, ids, mask) -> list:
+    """`forward(..., return_hidden=True)` (pre-LN, unpacked) over the tp
+    axis (`_tp_hidden`). Returns each position's logits over its vocab
+    shard, [B, L, V / tp]: the caller reduces them where it needs them
+    (the training loss does so vocab-parallel, never gathering [B, L, V])."""
+    return [_tied_logits(xt, tree) for xt, tree in zip(_tp_hidden(shards, config, ids, mask), shards)]
+
+
+def tp_encode(shards: list, config: TransformerConfig, ids, mask, *, seg=None,
+              max_segments: int = 0, use_flash: Optional[bool] = None):
+    """`forward`'s pooled encode over the tp axis (`_tp_hidden`), classic
+    ([B, H]) or packed ([B, max_segments, H] when seg is given): the JAX
+    package's encode with `mesh_params`. The hidden states are replicated
+    after the last psum, so the first position pools them; the result is
+    on its device."""
+    x = _tp_hidden(shards, config, ids, mask, seg=seg, use_flash=use_flash)[0]
+    dev = x.device
+    return _pool(x, config, None if mask is None else mask.to(dev),
+                 None if seg is None else seg.long().to(dev), max_segments)
 
 
 def _as_tensor_tree(tree):
@@ -555,9 +638,14 @@ class TransformerLM(nn.Module):
             params = init_params(torch.Generator().manual_seed(seed), config)
         self.weights = _Tree(_as_tensor_tree(params)).to(self.device)
         self._compute = None
+        self._placed: dict = {}
+        self._mesh_params: Optional[tuple] = None
 
     def _apply(self, fn, *args, **kwargs):
-        self._compute = None  # compute-dtype copies follow the weights
+        # compute-dtype copies and mesh shards follow the weights
+        self._compute = None
+        self._placed = {}
+        self._mesh_params = None
         return super()._apply(fn, *args, **kwargs)
 
     @property
@@ -578,28 +666,74 @@ class TransformerLM(nn.Module):
             self._compute = tree
         return self._compute
 
+    def params_on(self, device) -> Dict[str, Any]:
+        """The compute-dtype tree on `device` (the tree itself on the
+        weights' device), copied once per device."""
+        device = torch.device(device)
+        if device not in self._placed:
+            self._placed[device] = _tree_to(self.compute_params(), device)
+        return self._placed[device]
+
+    def mesh_params(self, mesh) -> list:
+        """Tensor-parallel copies of the weights for a mesh: for each
+        position of the mesh's dp axis, the `tp_split` trees of the
+        compute-dtype weights, tree t on the device at (dp, tp = t); cached
+        per mesh. Without a tp axis a position's one tree is `params_on`
+        its device. On one device the positions share their tensors, and a
+        shard of a one-group leaf is a view, so only qkv's shards copy.
+        The encoder entry points take a dp position's list as `params=`."""
+        cached = self._mesh_params
+        if cached is not None and cached[0] is mesh:
+            return cached[1]
+        positions = range(mesh.shape[dp_axis(mesh)])
+        if "tp" not in mesh.axis_names:
+            placed = [[self.params_on(_mesh_position(mesh, dp=d))] for d in positions]
+        else:
+            shards = tp_split(self.compute_params(), self.config, mesh)
+            placed = [
+                [_tree_to(tree, _mesh_position(mesh, dp=d, tp=t)) for t, tree in enumerate(shards)]
+                for d in positions
+            ]
+        self._mesh_params = (mesh, placed)
+        return placed
+
     def forward(self, ids, mask, *, params=None, use_flash: Optional[bool] = None):
         """Classic encode of a bucketed [B, L] batch: pooled [B, H] f32 on
-        the device (the work is queued, not waited for)."""
+        the device of the weights it runs (the work is queued, not waited
+        for). params: a tree (on any device), or a list of tp trees, one
+        dp position of `mesh_params`."""
+        params = self.compute_params() if params is None else params
         with torch.no_grad():
+            if isinstance(params, list):
+                dev = _tree_device(params[0])
+                return tp_encode(params, self.config, _to_device_ints(ids, dev),
+                                 _to_device_ints(mask, dev), use_flash=use_flash)
+            dev = _tree_device(params)
             return forward(
-                self.compute_params() if params is None else params,
+                params,
                 self.config,
-                _to_device_ints(ids, self.device),
-                _to_device_ints(mask, self.device),
+                _to_device_ints(ids, dev),
+                _to_device_ints(mask, dev),
                 use_flash=use_flash,
             )
 
     def encode_packed(self, ids, seg, max_segments: int, *, params=None):
         """Packed ragged encode of tokenizer.pack_batch slabs: pooled
-        [R, max_segments, H] f32 on the device; empty slots are zero."""
+        [R, max_segments, H] f32 on the weights' device; empty slots are
+        zero. params as `forward`'s."""
+        params = self.compute_params() if params is None else params
         with torch.no_grad():
+            if isinstance(params, list):
+                dev = _tree_device(params[0])
+                return tp_encode(params, self.config, _to_device_ints(ids, dev), None,
+                                 seg=_to_device_ints(seg, dev), max_segments=int(max_segments))
+            dev = _tree_device(params)
             return forward(
-                self.compute_params() if params is None else params,
+                params,
                 self.config,
-                _to_device_ints(ids, self.device),
+                _to_device_ints(ids, dev),
                 None,
-                seg=_to_device_ints(seg, self.device),
+                seg=_to_device_ints(seg, dev),
                 max_segments=int(max_segments),
             )
 

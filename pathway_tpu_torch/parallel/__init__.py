@@ -4,10 +4,12 @@ shards, and ring / Ulysses sequence parallelism."""
 
 from pathway_tpu_torch.parallel.mesh import (
     Mesh,
+    NamedSharding,
     P,
     PartitionSpec,
     default_mesh,
     get_mesh,
+    held_mesh,
     local_device_count,
     with_mesh,
 )
@@ -18,10 +20,12 @@ from pathway_tpu_torch.parallel.ring_attention import (
 
 __all__ = [
     "Mesh",
+    "NamedSharding",
     "P",
     "PartitionSpec",
     "default_mesh",
     "get_mesh",
+    "held_mesh",
     "local_device_count",
     "with_mesh",
     "ring_attention",

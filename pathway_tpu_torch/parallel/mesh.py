@@ -44,6 +44,12 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
+def same_device(a, b) -> bool:
+    """Whether two device names mean one device (`cuda` is `cuda:N` for
+    the current N)."""
+    return _indexed(torch.device(a)) == _indexed(torch.device(b))
+
+
 class Mesh:
     """An n-d grid of `torch.device`s with one name per axis.
     `mesh.shape[name]` is the axis size and `mesh.devices` the grid, as in
@@ -84,6 +90,43 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
 
 
+def dp_axis(mesh: Mesh) -> str:
+    """The mesh's data-parallel axis: `dp`, else its first axis (which may
+    be `tp` too, as the JAX package's mesh backend takes it)."""
+    return "dp" if "dp" in mesh.axis_names else mesh.axis_names[0]
+
+
+class NamedSharding:
+    """A PartitionSpec over a mesh, as `jax.sharding.NamedSharding`: at
+    most one dim is sharded, over one axis."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        dims = [i for i, axis in enumerate(spec) if axis is not None]
+        if len(dims) > 1:
+            raise ValueError(f"{spec}: at most one dim may be sharded")
+        self.mesh, self.spec = mesh, spec
+
+    def shard(self, x) -> list:
+        """`x` (a tensor or an array) cut along its sharded dim into the
+        axis's equal blocks, block i on the device at position i of that
+        axis (the other axes at 0), as `jax.device_put` lays it out. A
+        replicated spec gives one block, on the mesh's first device."""
+        x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        dims = [i for i, axis in enumerate(self.spec) if axis is not None]
+        if not dims:
+            return [x.to(self.mesh.devices.flat[0])]
+        devices = self.mesh.axis_devices(self.spec[dims[0]])
+        if x.shape[dims[0]] % len(devices):
+            raise ValueError(
+                f"dim {dims[0]} of size {x.shape[dims[0]]} does not split over the "
+                f"{self.spec[dims[0]]!r} axis of size {len(devices)}"
+            )
+        return [b.to(dev) for b, dev in zip(x.chunk(len(devices), dims[0]), devices)]
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
 def local_device_count() -> int:
     """The CUDA devices this process sees."""
     return torch.cuda.device_count()
@@ -112,6 +155,12 @@ def get_mesh(
     if axis_shapes is None:
         axis_shapes = [len(grid)] + [1] * (len(axis_names) - 1)
     return Mesh(grid.reshape(tuple(axis_shapes)), tuple(axis_names))
+
+
+def held_mesh() -> Optional[Mesh]:
+    """The mesh `with_mesh` holds, or None (unlike `default_mesh`, this
+    builds none)."""
+    return _active_mesh
 
 
 def default_mesh() -> Mesh:

@@ -13,7 +13,8 @@ pathway_tpu/stdlib/indexing/nearest_neighbors.py; the differences:
   * `_quiesce_device` reads back one element of the index buffer;
   * the vector impl's host path serves a CPU index only: on the card a
     degraded monitor makes its searches raise;
-  * there is no device mesh: `mesh=` and an active mesh backend raise.
+  * under a mesh (`mesh=`, or the run's mesh backend) the mesh's devices
+    place the index, and a `device=` that contradicts them raises.
 """
 
 from __future__ import annotations
@@ -46,27 +47,16 @@ class USearchMetricKind(enum.Enum):
 
 
 def _ingest_backend():
-    """The process-wide mesh execution backend. Impls are built at
-    engine-build time, inside pw.run(mesh=...), so this is where a
-    `mesh=None` factory would pick up the run's mesh; the port has none,
-    so an active backend raises."""
+    """The process-wide mesh execution backend, when it can shard the
+    bucketed ingest/index axes (power-of-two dp). Impls are built at
+    engine-build time — inside pw.run(mesh=...) — so this is where an
+    explicit `mesh=None` factory picks up the run's mesh."""
     from pathway_tpu_torch.internals.mesh_backend import active_backend
 
     backend = active_backend()
-    if backend is not None:
-        raise NotImplementedError(_NO_MESH)
+    if backend is not None and backend.can_shard_ingest():
+        return backend
     return None
-
-
-_NO_MESH = (
-    "pathway_tpu_torch has no device mesh yet: the KNN index is single-device "
-    "(ROADMAP: Queue 1, item 5, mesh, sharded and ring paths)"
-)
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
 
 
 class DeviceDegradedError(RuntimeError):
@@ -95,10 +85,13 @@ class _KnnIndexImpl(IndexImpl):
     def __init__(
         self, dimensions: int, metric: str, reserved_space: int, mesh=None, device=None
     ):
-        _refuse_mesh(mesh)
-        _ingest_backend()
+        if mesh is None:
+            backend = _ingest_backend()
+            if backend is not None:
+                mesh = backend.mesh
         self.knn = DeviceKnnIndex(
-            dimensions, metric=metric, reserved_space=reserved_space, device=device
+            dimensions, metric=metric, reserved_space=reserved_space, mesh=mesh,
+            device=device,
         )
         self.metric = metric
         self.metadata: dict = {}
@@ -202,15 +195,23 @@ class _FusedKnnIndexImpl(IndexImpl):
     def __init__(self, encoder, metric: str, reserved_space: int, mesh=None):
         from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
 
-        _refuse_mesh(mesh)
-        self._backend = _ingest_backend()
+        backend = None
+        if mesh is None:
+            # adopt the run's mesh backend: dp-sharded index + dp-grouped
+            # packed ingest + tp-sharded encoder (ops/knn.FusedEmbedSearch)
+            backend = _ingest_backend()
+            if backend is not None:
+                mesh = backend.mesh
+        self._backend = backend
         # the index follows the encoder: FusedEmbedSearch needs both on one
-        # device
+        # device (under a mesh, its first)
         self.knn = DeviceKnnIndex(
             encoder.dimension, metric=metric, reserved_space=reserved_space,
-            device=encoder.device,
+            mesh=mesh, device=encoder.device,
         )
-        self.fused = FusedEmbedSearch(encoder, self.knn, device=encoder.device)
+        self.fused = FusedEmbedSearch(
+            encoder, self.knn, backend=backend, device=encoder.device
+        )
         self.metadata: dict = {}
         self._pipeline = None
         self._pipeline_closed = False
@@ -237,12 +238,15 @@ class _FusedKnnIndexImpl(IndexImpl):
         from pathway_tpu_torch.internals.device_pipeline import pipeline_enabled
         from pathway_tpu_torch.internals.device_probe import device_degraded
 
+        # a factory-attached mesh keeps the classic dispatch; the mesh
+        # BACKEND path pipelines, one in-flight window per dp replica.
         # DEGRADED devices bypass the pipeline so in-flight work drains
         # and new batches take the synchronous path the monitor already
         # guards
         return (
             pipeline_enabled()
             and not self._pipeline_broken
+            and (self.knn.mesh is None or self._backend is not None)
             and not device_degraded()
         )
 
@@ -261,13 +265,15 @@ class _FusedKnnIndexImpl(IndexImpl):
         return self._pipeline
 
     def _quiesce_device(self) -> None:
-        # one-element readback of the index buffer: it queues on the card's
-        # stream behind every write to the buffer, so its completion
-        # implies theirs (a CPU buffer has nothing to wait for)
+        # one-element readback of each index buffer (each shard's block
+        # under a mesh): it queues on its device's stream behind every
+        # write to it, so its completion implies theirs (a CPU buffer has
+        # nothing to wait for)
         from pathway_tpu_torch.internals.device_pipeline import _default_wait
 
         self.knn._flush()
-        _default_wait(getattr(self.knn, "_buffer", None))
+        for buf in self.knn._device_buffers():
+            _default_wait(buf)
 
     def _pipeline_step(self, n: int) -> int:
         # finer chunks than the monolithic sync default: prepare of chunk
@@ -421,7 +427,7 @@ class BruteForceKnn(InnerIndex):
     """Exact KNN on the card (reference: nearest_neighbors.py
     BruteForceKnn:170; kernel: brute_force_knn_integration.rs → ops/knn.py).
     `device` places the vector impl's index (None: the CUDA card); `mesh`
-    is the JAX package's placement keyword and raises here."""
+    shards it over the mesh's first axis, on the mesh's devices."""
 
     def __init__(
         self,
@@ -436,11 +442,12 @@ class BruteForceKnn(InnerIndex):
         device=None,
     ):
         super().__init__(data_column, metadata_column)
-        _refuse_mesh(mesh)
         self.dimensions = dimensions
         self.reserved_space = reserved_space
         self.metric = metric
         self.embedder = embedder
+        # mesh: shard the device index over the mesh's first axis
+        # (sharded_knn_search); None = single-device buffer
         self.mesh = mesh
         # where the vector impl keeps its index (None: the CUDA card); the
         # fused impl follows its encoder's device instead

@@ -488,11 +488,36 @@ def test_status_endpoint_carries_the_analysis():
     assert "PWT202" in [f["code"] for f in status["analysis"]["findings"]]
 
 
-def test_mesh_still_raises_before_the_analyzer():
-    tpw.G.clear()
-    _clean_rows(tpw)
-    try:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tpw.run(mesh="dp=2", analysis="warn", monitoring_level=tpw.MonitoringLevel.NONE)
-    finally:
-        tpw.G.clear()
+def test_the_analyzer_runs_under_an_active_mesh():
+    """pw.run(mesh=, analysis=) runs the analyzer under an active mesh:
+    the port's backend over a held mesh of two CPU positions is up for
+    the run, and the findings are the JAX package's for the same run on
+    its CPU devices."""
+    from pathway_tpu_torch.internals import mesh_backend
+    from pathway_tpu_torch.parallel.mesh import get_mesh, with_mesh
+
+    backends = []
+
+    def build(pw):
+        t = pw.debug.table_from_rows(pw.schema_from_types(k=str, v=int), [("a", 1)])
+        pw.io.subscribe(
+            t.select(k=t.k, v=t.v * 2),
+            on_change=lambda *a, **k: backends.append(_mod(pw, "internals.mesh_backend").active_backend()),
+        )
+
+    def run(pw):
+        pw.G.clear()
+        try:
+            build(pw)
+            pw.run(mesh="dp=2", analysis="warn", monitoring_level=pw.MonitoringLevel.NONE)
+            return _mod(pw, "internals.runner").last_engine().analysis
+        finally:
+            pw.G.clear()
+
+    with with_mesh(get_mesh((2,), ("dp",), devices=["cpu"] * 2)):
+        port = run(tpw)
+    assert backends[0] is not None and backends[0].dp == 2
+    assert mesh_backend.active_backend() is None
+    jax = run(jpw)
+    assert port is not None and jax is not None
+    assert [f["code"] for f in port["findings"]] == [f["code"] for f in jax["findings"]]

@@ -19,7 +19,10 @@ flash atol 1e-4 in f32 and 2e-2 in bf16 (about one bf16 ulp at |o| in
 [2, 4)), on rows with at least one live key; fully masked rows only need
 to be finite. Encoder: f32 atol 1e-4, bf16 per-row cosine >= 0.999.
 Decoder (head dims 128 and 256): f32 logits atol 1e-4 and the same greedy
-tokens, bf16 per-position logit cosine >= 0.999.
+tokens, bf16 per-position logit cosine >= 0.999. The data-plane mesh on
+["cuda:0"] * n against the same mesh over ["cpu"] * n: the sharded index's
+slots equal, its scores as knn's, at least 99 % of the live slots equal
+(near-ties); tensor-parallel decode's greedy tokens equal.
 """
 
 import numpy as np
@@ -694,3 +697,68 @@ def test_sequence_parallel_forward_on_card_matches_cpu(card, attn):
             want = 4 * cfg.layers if attn == "ulysses" else 0
             assert kernels.flash_attention.launches == before + want
     np.testing.assert_allclose(out["cuda:0"].numpy(), out["cpu"].numpy(), atol=1e-4, rtol=0)
+
+
+# -- the data-plane mesh on ["cuda:0"] * n against ["cpu"] * n --------------------
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("metric", ["cos", "l2sq"])
+def test_sharded_index_on_card_matches_cpu(card, n_dev, metric):
+    """DeviceKnnIndex over a ("knn",) mesh: adds with shard hints, removes
+    and a growth on both meshes, then searches at k below and above a
+    shard's rows: the same slots, knn_topk launched once a shard."""
+    from pathway_tpu_torch.ops.kernels import knn_topk
+    from pathway_tpu_torch.parallel.mesh import get_mesh
+
+    rng = np.random.default_rng(n_dev)
+    d = 40
+    indexes = [
+        DeviceKnnIndex(d, metric=metric, reserved_space=64,
+                       mesh=get_mesh((n_dev,), ("knn",), devices=[dev] * n_dev))
+        for dev in ("cuda:0", "cpu")
+    ]
+    for step in range(3):
+        keys = list(range(step * 50, step * 50 + 50))
+        vecs = rng.standard_normal((50, d)).astype(np.float32)
+        for idx in indexes:
+            idx.add_batch(keys, torch.from_numpy(vecs), shards=[k % n_dev for k in keys])
+            for key in keys[::7]:
+                idx.remove(key)
+    on_card, on_cpu = indexes
+    assert on_card._slot_of_key == on_cpu._slot_of_key and on_card.capacity == 256
+    q = rng.standard_normal((9, d)).astype(np.float32)
+    for k in (5, 100):  # a shard holds 256 / n_dev rows
+        knn_topk.launches = 0
+        cs, ci, _ = on_card.search(q, k)
+        assert knn_topk.launches == n_dev
+        ps, pi, _ = on_cpu.search(q, k)
+        live = np.isfinite(ps)
+        np.testing.assert_array_equal(np.isfinite(cs), live)
+        np.testing.assert_allclose(cs[live], ps[live], atol=1e-4, rtol=1e-5)
+        assert (ci[live] == pi[live]).mean() > 0.99  # near-ties may swap
+
+
+def test_tp_decode_on_card_matches_cpu(card):
+    """The small hd-128 decoder tensor-parallel over tp = 2 on the card
+    against the same on the CPU: prefill through flash on each position,
+    the same greedy tokens, logits within the f32 tolerance."""
+    from pathway_tpu_torch.ops.kernels import flash_attention
+    from pathway_tpu_torch.parallel.mesh import get_mesh
+
+    cfg = dec.DecoderConfig(vocab_size=512, hidden=512, layers=2, q_heads=4, kv_heads=2,
+                            mlp_dim=1024, max_len=512, dtype="float32")
+    params = dec.init_decoder_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 512, size=(2, 300)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, 260:] = 0
+    toks = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = get_mesh((2,), ("tp",), devices=[dev] * 2)
+        shards = dec.decoder_tp_split(params, cfg, mesh)  # each shard copied to its device
+        flash_attention.launches = 0
+        toks[dev] = dec.generate_tokens(shards, cfg, ids, mask, max_new_tokens=4)
+        if dev == "cuda:0":
+            assert flash_attention.launches == 2 * cfg.layers
+    np.testing.assert_array_equal(toks["cuda:0"], toks["cpu"])

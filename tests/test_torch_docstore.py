@@ -500,7 +500,7 @@ def test_card_vector_index_under_a_degraded_monitor_never_searches_on_the_host(m
     class CardIndex:
         device = torch.device("cuda")
 
-        def __init__(self, dimensions, metric, reserved_space, device):
+        def __init__(self, dimensions, metric, reserved_space, device, mesh=None):
             self.rows = {}
 
         def __len__(self):

@@ -608,24 +608,30 @@ def test_trace_points_at_the_users_line():
 
 
 @pytest.mark.parametrize("kwargs", [{"analysis": "warn"}, {"analysis": "strict"}, {"mesh": "dp=2"}])
-def test_run_refuses_the_analyzer_paths_it_does_not_have(kwargs):
-    """Of these paths the port lacks only the device mesh, so
-    pw.run(mesh=...) raises; analysis="warn" / "strict" run the ported
-    static analyzer, which finds nothing to refuse here and attaches its
-    result to the engine (tests/test_torch_analysis.py holds it to the
-    JAX package's)."""
+def test_run_takes_the_analyzer_and_mesh_paths(kwargs):
+    """Every one of these paths runs:
+    analysis="warn" / "strict" run the ported static analyzer, which finds
+    nothing to refuse here and attaches its result to the engine
+    (tests/test_torch_analysis.py holds it to the JAX package's); a mesh
+    with no held mesh and no CUDA device leaves the backend inactive, the
+    spec a lint target (the analyzer on, at least "warn"), as the JAX
+    package does with too few devices."""
+    from pathway_tpu_torch.internals import mesh_backend
     from pathway_tpu_torch.internals.runner import last_engine
 
     tpw.G.clear()
+    backends = []
     try:
-        tpw.io.subscribe(tpw.debug.table_from_markdown("v\n1\n"), on_change=lambda *a, **k: None)
+        tpw.io.subscribe(
+            tpw.debug.table_from_markdown("v\n1\n"),
+            on_change=lambda *a, **k: backends.append(mesh_backend.active_backend()),
+        )
+        tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
+        analysis = last_engine().analysis
+        assert analysis is not None and analysis["findings"] == []
+        assert backends == [None]
         if "mesh" in kwargs:
-            with pytest.raises(NotImplementedError, match="device mesh"):
-                tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
-        else:
-            tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
-            analysis = last_engine().analysis
-            assert analysis is not None and analysis["findings"] == []
+            assert last_engine().mesh == {"dp": 2}
     finally:
         tpw.G.clear()
 

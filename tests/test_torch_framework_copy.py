@@ -45,8 +45,10 @@ EDITED = {
         "total memory in place of jax's memory_stats; capacity has no TPU chip table"
     ),
     "internals/mesh_backend.py": (
-        "no device mesh in the port yet: activate() and batch_sharding() raise "
-        "in place of building a jax.sharding.Mesh"
+        "activate() builds a parallel.mesh.Mesh of torch devices, those of the mesh "
+        "with_mesh holds (whose axes must be the spec's, else ValueError) or the "
+        "process's CUDA devices, in place of a jax.sharding.Mesh over jax.devices(); "
+        "batch_sharding() returns parallel.mesh.NamedSharding in place of JAX's"
     ),
     "internals/profiler.py": (
         "captures with torch.profiler (CPU activity, plus CUDA where the process "
@@ -88,7 +90,8 @@ EDITED = {
         "_quiesce_device reads back one element of the torch buffer in place of a "
         "jnp.sum; the fused impl builds its index and FusedEmbedSearch on the "
         "encoder's device; BruteForceKnn / BruteForceKnnFactory take device= for "
-        "the vector impl; mesh= and an active mesh backend raise (no device mesh); "
+        "the vector impl, which under a mesh the mesh's devices place (a contradicting "
+        "device= raises); _quiesce_device waits on each shard's block; "
         "the vector impl keeps its host mirror and numpy search for a CPU index only, "
         "and on the card a degraded monitor makes search_many raise DeviceDegradedError "
         "instead of moving the search to the host; the fused impl's close() stops its "
@@ -181,10 +184,10 @@ def _tree(path: str, *, port: bool) -> str:
     return ast.dump(_strip_docstrings(ast.parse(src)), include_attributes=False)
 
 
-# the JAX package's modules that the port has no counterpart for: the
-# multichip checks of the data-plane mesh (internals/mesh_backend.py is a
-# counterpart, in EDITED: its device half raises)
-UNPORTED = {"parallel/multichip_checks.py"}
+# the JAX package's modules that the port has no counterpart for: none
+# (internals/mesh_backend.py is in EDITED: its device half builds the
+# port's mesh of torch devices)
+UNPORTED: set = set()
 
 
 def _modules(pkg: str) -> set:
@@ -195,8 +198,8 @@ def _modules(pkg: str) -> set:
     return out
 
 
-def test_the_unported_module_is_the_multichip_checks():
-    assert _modules(JAX_PKG) - _modules(PORT_PKG) == UNPORTED
+def test_every_jax_module_has_a_counterpart():
+    assert _modules(JAX_PKG) - _modules(PORT_PKG) == UNPORTED == set()
     assert "internals/mesh_backend.py" in EDITED
 
 
