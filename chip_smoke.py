@@ -24,6 +24,9 @@ width with random weights from a seed:
      FusedEmbedSearch.search_texts;
   5. long documents: SentenceEncoder(max_len=512) over 256 docs of L = 512,
      which takes the flash kernel, against the same encode without flash;
+     then the same docs through an f32 MiniLM-L6 (dtype float32), whose
+     flash calls take the f32 instance flash_fwd_tf32x3<32> (6 a batch),
+     against its own dense f32 encode (row cosine >= 0.99999);
   6. the decoder at full Mistral-7B width (hidden 4096, 32 layers, 32 q /
      8 kv heads, MLP 14336, vocab 32000, bf16, random weights from a
      seeded generator on the card): ChatModel("mistral-7b", max_len=2048)
@@ -173,7 +176,8 @@ width with random weights from a seed:
 
 Phase 3 holds every flash instance: flash_fwd_bf16<16|32|64|128|256>
 (wgmma + TMA; the serial schedule up to 64, ping-pong at 128 and 256) and
-flash_fwd_rows<float,256> (f32, one warp per query row). It also holds the
+flash_fwd_tf32x3<16|32|64|128|256> (f32: each product in three tf32
+passes on the tensor cores). It also holds the
 two shape repairs: DeviceKnnIndex at dimensions 2, 3 and 6 (rows padded to
 16 bytes for the kernel) against the same index on the CPU, and flash at
 head dims 24, 48 and 80 (zero-padded to the next kernel instance) against
@@ -181,9 +185,10 @@ the plain version; and the head-dim 256 instances (head dims 160 and 200
 padded to them) against the plain version, timed at [1, 16, 2048, 256]
 causal beside scaled_dot_product_attention. At D = 128 and 256 it prints
 the products' share of the tensor cores' peak beside the times. It times
-the f32 instances too: the one-thread-a-row kernel at [64, 12, 512, 32]
-and flash_fwd_rows<float,256> at [1, 16, 2048, 256] causal, beside the
-plain version and scaled_dot_product_attention in f32.
+the f32 instances too, flash_fwd_tf32x3<32> at [64, 12, 512, 32] and <256>
+at [1, 16, 2048, 256] causal, beside the plain version and
+scaled_dot_product_attention in f32, with their bound at three tf32
+passes and the CUDA cores' f32 bound beside it.
 
 Every check raises on failure, so a failed phase exits non-zero and prints
 no `ok` line. Imports torch, numpy and pathway_tpu_torch only.
@@ -404,19 +409,21 @@ def check_flash(flash_attention, reference_attention, gen) -> dict:
     check(e <= 2e-2, f"flash_attention bf16 causal [2,{h},{l},{d}]: error {e}")
     log(f"  flash_attention bf16 [2,{h},{l},{d}] causal: max |err| on live rows {e:.3g}  ok")
     err = max(err, e)
-    # a small causal case and a non-causal one in f32
-    qf, kf, vf = (
-        torch.randn((2, 3, 300, d), device="cuda", generator=gen) for _ in range(3)
-    )
+    # a small causal case and a non-causal one in f32, at the encoder's D
+    # and at 16, the f32 instance that no model of this script reaches
     mf = torch.ones((2, 300), dtype=torch.int32, device="cuda")
     mf[1, 170:] = 0
-    for causal in (True, False):
-        e = live_rows_err(
-            flash_attention(qf, kf, vf, mf, causal=causal),
-            reference_attention(qf, kf, vf, mf, scale, causal), mf,
+    for df in (d, 16):
+        qf, kf, vf = (
+            torch.randn((2, 3, 300, df), device="cuda", generator=gen) for _ in range(3)
         )
-        check(e <= 1e-4, f"flash_attention f32 causal={causal}: error {e}")
-        log(f"  flash_attention f32 [2,3,300,{d}] causal={causal}: max |err| {e:.3g}  ok")
+        for causal in (True, False):
+            e = live_rows_err(
+                flash_attention(qf, kf, vf, mf, causal=causal),
+                reference_attention(qf, kf, vf, mf, df ** -0.5, causal), mf,
+            )
+            check(e <= 1e-4, f"flash_attention f32 D={df} causal={causal}: error {e}")
+            log(f"  flash_attention f32 [2,3,300,{df}] causal={causal}: max |err| {e:.3g}  ok")
     ms = median_ms(lambda: flash_attention(q, k, v, mask))
     plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, False))
     keep = mask.bool()[:, None, None, :]
@@ -445,8 +452,11 @@ def check_flash(flash_attention, reference_attention, gen) -> dict:
     return {
         "name": "flash_attention",
         "route": "cuda",
-        "instances": ["flash_fwd_bf16<16|32|64|128|256>", "flash_fwd_rows<float,256>"],
+        "instances": ["flash_fwd_bf16<16|32|64|128|256>", "flash_fwd_tf32x3<16|32|64|128|256>"],
+        # the row's own times are bf16<32>'s; each f32 shape names its source
         "source": "pathway_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+        "sources": ["pathway_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+                    "pathway_tpu_torch/ops/kernels/csrc/flash_attention_f32.cu"],
         "replaces": "pathway_tpu/ops/kernels/flash_attention.py:25",
         "max_abs_err": err,
         "ms": ms,
@@ -564,7 +574,7 @@ def check_padded_shapes(knn_topk, flash_attention, reference_attention) -> None:
 
 def check_flash_d256(flash_attention, reference_attention) -> dict:
     """Flash at head dim 256 (bf16: flash_fwd_bf16<256>, wgmma + TMA with
-    the ping-pong schedule; f32: flash_fwd_rows<float,256>) and at 160 and
+    the ping-pong schedule; f32: flash_fwd_tf32x3<256>) and at 160 and
     200 through the padding, against the plain version on rows with a live
     key (bf16 2e-2, f32 1e-4, the other instances' tolerances), then its
     time at gemma-7b's attention geometry [1, 16, 2048, 256] causal bf16
@@ -597,7 +607,7 @@ def check_flash_d256(flash_attention, reference_attention) -> dict:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         check(e <= tol, f"flash_attention [{b},{h},{lq}/{lk},{d}] {dtype} causal={causal}: "
                         f"error {e}")
-        kernel = "flash_fwd_rows<float,256>" if dtype == torch.float32 else "flash_fwd_bf16<256>"
+        kernel = "flash_fwd_tf32x3<256>" if dtype == torch.float32 else "flash_fwd_bf16<256>"
         log(f"  flash_attention D={d} ({kernel}) [{b},{h},{lq}/{lk},{d}] "
             f"{str(dtype).split('.')[-1]} causal={causal}: max |err| on live rows {e:.3g}  ok")
         if dtype == torch.bfloat16:
@@ -636,33 +646,40 @@ def check_flash_d256(flash_attention, reference_attention) -> dict:
 
 
 def time_flash_f32(flash_attention, reference_attention) -> list:
-    """The f32 instances' times, CUDA-event medians beside the plain
-    version and scaled_dot_product_attention in f32 (TF32 is off in this
-    script): the one-thread-a-row kernel of flash_attention_f32.cu at the
-    encoder's [64, 12, 512, 32] with phase 3's ragged mask shape, and
-    flash_fwd_rows<float,256> at [1, 16, 2048, 256] causal. The bound is
-    the larger of the bytes at 3.35 TB/s and the products at the CUDA
-    cores' f32 peak (67 TFLOP/s), the f32 kernels' own units. Each against
-    the plain version first (f32 1e-4 on rows with a live key). Its own
+    """The f32 instance's times (flash_fwd_tf32x3<D>, each product in
+    three tf32 passes on the tensor cores), CUDA-event medians beside the
+    plain version and scaled_dot_product_attention in f32 (TF32 is off in
+    this script): at the encoder's [64, 12, 512, 32] with every key live,
+    as phase 5's f32 encode calls it (its 520-word docs fill L = 512), and
+    at [1, 16, 2048, 256] causal. The bound is the larger of the bytes at
+    3.35 TB/s and the products that these inputs need (every pair, or L (L
+    + 1) / 2 a head when causal), three tf32 passes at 495 TFLOP/s (an
+    effective 165); the CUDA cores' f32 bound (67 TFLOP/s), the units of
+    the designs it replaced, is printed beside it. Each shape is first
+    held to the plain version (f32 1e-4 on rows with a live key), the
+    encoder's on a ragged mask with 1 to 512 live keys a row. Its own
     generator."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
-    for b, h, l, d, causal, kernel in (
-        (64, 12, 512, 32, False, "flash_fwd_f32<32> (one thread a query row)"),
-        (1, 16, 2048, 256, True, "flash_fwd_rows<float,256>"),
-    ):
+    for b, h, l, d, causal in ((64, 12, 512, 32, False), (1, 16, 2048, 256, True)):
+        kernel = f"flash_fwd_tf32x3<{d}>"
         q, k, v = (torch.randn((b, h, l, d), device="cuda", generator=gen) for _ in range(3))
+        mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
         if causal:
-            mask = torch.ones((b, l), dtype=torch.int32, device="cuda")
+            checked = mask
         else:
             lens = torch.randint(1, l + 1, (b,), device="cuda", generator=gen)
-            mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+            checked = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
         scale = d ** -0.5
-        e = live_rows_err(flash_attention(q, k, v, mask, causal=causal),
-                          reference_attention(q, k, v, mask, scale, causal), mask)
+        e = live_rows_err(flash_attention(q, k, v, checked, causal=causal),
+                          reference_attention(q, k, v, checked, scale, causal), checked)
         check(e <= 1e-4, f"flash_attention f32 [{b},{h},{l},{d}] causal={causal}: error {e}")
+        if not causal:  # and on the timed inputs, every key live
+            e = max(e, live_rows_err(flash_attention(q, k, v, mask),
+                                     reference_attention(q, k, v, mask, scale, False), mask))
+            check(e <= 1e-4, f"flash_attention f32 [{b},{h},{l},{d}] all keys live: error {e}")
         ms = median_ms(lambda: flash_attention(q, k, v, mask, causal=causal))
         plain_ms = median_ms(lambda: reference_attention(q, k, v, mask, scale, causal))
         if causal:
@@ -673,24 +690,31 @@ def time_flash_f32(flash_attention, reference_attention) -> list:
             library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
             pairs = b * h * l * l
         nbytes = 4 * q.numel() * 4 + mask.numel() * 4
-        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * pairs * d / F32_FLOPS * 1e3
-        log(f"  flash_attention [{b},{h},{l},{d}] f32 causal={causal} ({kernel}): max |err| "
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = 3 * 4.0 * pairs * d / TF32_FLOPS * 1e3  # three tf32 passes
+        f32_ms = 4.0 * pairs * d / F32_FLOPS * 1e3
+        bound_ms = max(byte_ms, op_ms)
+        log(f"  flash_attention [{b},{h},{l},{d}] f32 causal={causal}"
+            f"{'' if causal else ', timed with every key live'} ({kernel}): max |err| "
             f"{e:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-            f"f32 {library_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms (bytes {byte_ms:.4f}, "
-            f"f32 products at 67 TFLOP/s {op_ms:.4f})")
+            f"f32 {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {byte_ms:.4f}, products in "
+            f"three tf32 passes at 495 TFLOP/s {op_ms:.4f}; on the f32 CUDA cores at 67 TFLOP/s "
+            f"{f32_ms:.4f}); share of the bound {bound_ms / ms:.3f} (SDPA {bound_ms / library_ms:.3f})")
         rows.append({
             "instance": kernel,
+            "source": "pathway_tpu_torch/ops/kernels/csrc/flash_attention_f32.cu",
             "shape": [b, h, l, d],
             "dtype": "float32",
             "causal": causal,
             "max_abs_err": e,
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(byte_ms, op_ms),
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bound_share": bound_ms / ms,
+            "f32_cuda_core_bound_ms": max(byte_ms, f32_ms),
             "library_ms": library_ms,
-            # every model of the smoke runs bf16: no path launches an f32 instance
-            "launches": 0,
+            "launches": 0,  # phase 5's f32 encode fills in the first
         })
     return rows
 
@@ -787,26 +811,57 @@ def run_main_path(docs) -> dict:
     return {"packed_docs_per_s": packed_rate, "classic_docs_per_s": classic_rate}
 
 
-def run_long_docs() -> None:
+def run_long_docs(flash_attention) -> dict:
+    """Phase 5: 256 docs at L = 512 through MiniLM-L6 in bf16 (flash
+    bf16<32>), each batch against the same encode without flash; then the
+    same docs through an f32 MiniLM-L6 (TransformerConfig.dtype float32,
+    the same seed), whose flash calls take flash_fwd_tf32x3<32>: 6 launches
+    a batch of 64, each row's cosine against its dense f32 encode >=
+    0.99999, docs/s beside the bf16 encode's. The cosine shows that the
+    encode runs through the kernel soundly; it cannot tell three tf32
+    passes from one (one pass errs ~1.5e-3 in the attention, ~1e-6 in the
+    pooled cosine). The kernel's f32 accuracy is held in phase 3, at 1e-4
+    at this shape (time_flash_f32). The largest |difference| of the
+    embeddings is logged. Returns the f32 launches."""
+    import dataclasses
+
     from pathway_tpu_torch.models.minilm import SentenceEncoder
     from pathway_tpu_torch.models.tokenizer import encode_batch
+    from pathway_tpu_torch.models.transformer import MINILM_L6
 
-    encoder = SentenceEncoder("all-MiniLM-L6-v2", max_len=512, seed=0)
     docs = make_docs(256, random.Random(3), words=520)
     batches = [docs[s : s + 64] for s in range(0, len(docs), 64)]
-    t0 = time.perf_counter()
-    vecs = [encoder.encode(batch) for batch in batches]
-    wall = time.perf_counter() - t0
-    worst = 1.0
-    for batch, got in zip(batches, vecs):
-        ids, mask = encode_batch(encoder.tokenizer, batch, max_len=512)
-        check(ids.shape == (64, 512), f"long docs bucketed to {ids.shape}, not (64, 512)")
-        dense = encoder.lm(ids, mask, use_flash=False)[: len(batch)].cpu().numpy()
-        check(np.isfinite(got).all() and got.shape == (64, DIM), "long-doc encode: bad output")
-        worst = min(worst, float(cosine_rows(got, dense).min()))
-    check(worst >= 0.999, f"flash vs dense encode: min cosine {worst}")
-    log(f"  {len(docs)} docs at L=512: {len(docs) / wall:.1f} docs/s; "
-        f"flash vs dense per-row cosine >= {worst:.6f}  ok")
+    rates = {}
+    f32_launches = 0
+    for dtype, floor in (("bfloat16", 0.999), ("float32", 0.99999)):
+        encoder = SentenceEncoder(
+            "all-MiniLM-L6-v2", config=dataclasses.replace(MINILM_L6, dtype=dtype), max_len=512,
+            seed=0,
+        )
+        before = flash_attention.launches_by_instance.get("f32<32>", 0)
+        t0 = time.perf_counter()
+        vecs = [encoder.encode(batch) for batch in batches]
+        rates[dtype] = len(docs) / (time.perf_counter() - t0)
+        launched = flash_attention.launches_by_instance.get("f32<32>", 0) - before
+        worst, diff = 1.0, 0.0
+        for batch, got in zip(batches, vecs):
+            ids, mask = encode_batch(encoder.tokenizer, batch, max_len=512)
+            check(ids.shape == (64, 512), f"long docs bucketed to {ids.shape}, not (64, 512)")
+            dense = encoder.lm(ids, mask, use_flash=False)[: len(batch)].cpu().numpy()
+            check(np.isfinite(got).all() and got.shape == (64, DIM), "long-doc encode: bad output")
+            worst = min(worst, float(cosine_rows(got, dense).min()))
+            diff = max(diff, float(np.abs(got - dense).max()))
+        check(worst >= floor, f"{dtype} flash vs dense encode: min cosine {worst}")
+        if dtype == "float32":
+            check(launched == 6 * len(batches),
+                  f"f32 encode: flash f32<32> launched {launched} times, not {6 * len(batches)}")
+            f32_launches = launched
+        log(f"  {len(docs)} docs at L=512, {dtype}: {rates[dtype]:.1f} docs/s; flash vs dense "
+            f"per-row cosine >= {worst:.7f}, max |diff| {diff:.3g}; flash f32<32> launches "
+            f"{launched}  ok")
+        del encoder
+    log(f"  the f32 encode at {rates['float32'] / rates['bfloat16']:.3f}x the bf16 encode's docs/s")
+    return {"f32_launches": f32_launches, "docs_per_s": rates}
 
 
 # -- phase 6: the decoder at full width ----------------------------------------
@@ -3859,10 +3914,13 @@ def main() -> int:
     log("[5] long documents through flash")
     knn_topk.launches = 0
     flash_attention.launches = 0
-    run_long_docs()
+    flash_attention.launches_by_instance = {}
+    long_docs = run_long_docs(flash_attention)
     flash_row["launches"] = flash_attention.launches
+    f32_shapes[0]["launches"] = long_docs["f32_launches"]
     check(flash_attention.launches > 0, "long-document path launched no flash kernel")
-    log(f"  flash_attention launches on the long-document path: {flash_attention.launches}")
+    log(f"  flash_attention launches on the long-document path: {flash_attention.launches} "
+        f"(bf16<32> and, in the f32 encode, f32<32> {long_docs['f32_launches']})")
 
     log("[6] the decoder at full Mistral-7B width")
     gc.collect()

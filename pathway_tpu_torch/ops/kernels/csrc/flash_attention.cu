@@ -88,11 +88,13 @@
 //       rise to 240 (setmaxnreg): 2 x 128 x (240 - 168) = 128 x (168 -
 //       24). Its first warp loads; the other three only give registers back.
 //
-//   flash_fwd_f32 (f32, in flash_attention_f32.cu): the simple design, one
-//     thread per query row on the CUDA cores, and flash_fwd_rows<float,
-//     256> (in flash_attention_d256.cu) one warp per query row at D = 256.
-//     They serve f32 callers (tests, f32 configs), not the bf16 encoder or
-//     decoder.
+//   flash_fwd_tf32x3<D> (f32 inputs, every head dim, in
+//     flash_attention_f32.cu): the tensor cores too, each product in three
+//     tf32 passes to f32 accuracy, which bounds it at an effective 165
+//     TFLOP/s. tf32 wgmma reads B K-major only, so a producer warpgroup
+//     loads each kv tile itself, splits it into hi and lo and writes v
+//     transposed; it serves f32 configs (TransformerConfig.dtype =
+//     "float32"), the tests, and the f32 gradients' forward.
 //
 // The sequential kv grid axis of the TPU kernel becomes the loop over kv
 // tiles inside a block. Keys past the end of the sequence take no part;
@@ -937,8 +939,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int32
 
 extern "C" {
 
-// flash_attention_f32.cu: the f32 inputs' kernels, built as a source of
-// their own so that nvcc compiles the files at once
+// flash_attention_f32.cu: the f32 inputs' kernel, built as a source of its
+// own so that nvcc compiles the files at once
 int pwt_flash_attention_f32_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
                                 void* o, int B, int H, int Lq, int Lk, int D, float sm_scale,
                                 int causal, void* stream);

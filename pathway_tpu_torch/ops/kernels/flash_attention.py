@@ -14,10 +14,15 @@ per head dim, each scheduled for what bounds it on an H100:
   at the tensor cores (ping-pong), the producer warpgroup hands its
   registers to them, and the output leaves by TMA.
 
-f32 inputs take simple CUDA-core kernels (one thread per query row, one
-warp per row at 256, csrc/flash_attention_d256.cu). The wrapper pads any
-other head dim up to the next instance (256 at most) with zero columns,
-which add nothing to q k^T or to P v, and slices the output back.
+f32 inputs take the tensor cores too, to f32 accuracy
+(csrc/flash_attention_f32.cu, `flash_fwd_tf32x3<D>`): each product is
+three tf32 passes (hi hi + lo hi + hi lo of the operands split into tf32
+hi and lo parts), an effective 165 TFLOP/s, which bounds it. tf32 wgmma
+reads its B operand K-major only, so a producer warpgroup loads each kv
+tile, splits it and writes v transposed into shared memory; the kernel
+needs no scratch in device memory. The wrapper pads any other head dim up
+to the next instance (256 at most) with zero columns, which add nothing
+to q k^T or to P v, and slices the output back.
 `reference_attention` is the plain version, the same function as the JAX
 package's `_reference_attention`; the wrapper takes it only for tensors
 on the CPU. A CUDA tensor launches the kernel or raises.

@@ -197,7 +197,8 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (1, 2, 40, 130, 128, torch.bfloat16, True),
         (2, 2, 65, 65, 128, torch.bfloat16, True),  # one row in the second
         # head dim 256: bf16 on the tensor cores (four 64-column parts, a
-        # two-stage ring), f32 one warp per query row; 160 / 200 padded
+        # two-stage ring), f32 in three tf32 passes (one consumer
+        # warpgroup, a one-stage ring); 160 / 200 padded
         (2, 4, 300, 300, 256, torch.bfloat16, True),
         (2, 4, 300, 300, 256, torch.bfloat16, False),
         (2, 2, 1, 77, 256, torch.bfloat16, False),  # Lq = 1
@@ -219,6 +220,13 @@ def _flash_case(b, h, lq, lk, d, dtype, seed, card):
         (2, 4, 200, 200, 200, torch.bfloat16, False),
         (2, 3, 300, 300, 200, torch.bfloat16, True),
         (2, 2, 200, 200, 200, torch.float32, True),
+        # the f32 instances (three tf32 passes) over long key runs: the
+        # ring wraps 32 to 128 times; one query row against 4096 keys
+        (1, 2, 4096, 4096, 32, torch.float32, False),
+        (1, 2, 4096, 4096, 32, torch.float32, True),
+        (1, 2, 4096, 4096, 256, torch.float32, False),
+        (1, 2, 4096, 4096, 256, torch.float32, True),
+        (2, 2, 1, 4096, 128, torch.float32, False),
     ],
 )
 def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
@@ -239,19 +247,25 @@ def test_flash_kernel_matches_plain(card, b, h, lq, lk, d, dtype, causal):
 
 
 @pytest.mark.parametrize(
-    "b, h, l, d",
-    [(8, 32, 1000, 128), (8, 4, 1000, 256)],  # the decoder prefill's heads; heads of 256
+    "b, h, l, d, dtype",
+    [
+        (8, 32, 1000, 128, torch.bfloat16),  # the decoder prefill's heads
+        (8, 4, 1000, 256, torch.bfloat16),  # heads of 256
+        (8, 12, 1000, 32, torch.float32),  # an f32 encoder's heads
+        (8, 4, 1000, 256, torch.float32),
+    ],
 )
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_ragged_rows_down_to_one_live_key(card, b, h, l, d, causal):
+def test_flash_kernel_ragged_rows_down_to_one_live_key(card, b, h, l, d, dtype, causal):
     """Batch rows of 1, 2, 63, 64, 65, 127, 999 and all live keys: a
     tile's mask addends, a partial last tile and rows whose only live key
     is the first, with and without the causal mask. Rows of one or two
     live keys output v itself, up to |o| ~ 5, where one bf16 ulp is 2^-5,
-    so the bound is 2e-2 of max(1, |o|): the table's 2e-2 below |o| = 1,
-    and about one ulp above."""
+    so the bf16 bound is 2e-2 of max(1, |o|): the table's 2e-2 below |o| =
+    1, and about one ulp above. f32 keeps the table's 1e-4 on every row
+    (each has a live key)."""
     g = torch.Generator(device=card).manual_seed(d + int(causal))
-    q, k, v = (torch.randn((b, h, l, d), device=card, generator=g).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn((b, h, l, d), device=card, generator=g).to(dtype) for _ in range(3))
     lens = torch.tensor([1, 2, 63, 64, 65, 127, l - 1, l], device=card)[:b]
     mask = (torch.arange(l, device=card)[None, :] < lens[:, None]).to(torch.int32)
     before = kernels.flash_attention.launches
@@ -260,8 +274,12 @@ def test_flash_kernel_ragged_rows_down_to_one_live_key(card, b, h, l, d, causal)
     assert kernels.flash_attention.launches == before + 1
     assert bool(torch.isfinite(out.float()).all())
     ref = reference_attention(q, k, v, mask, d ** -0.5, causal).float()
-    err = ((out.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
-    assert err <= 2e-2, err
+    if dtype == torch.float32:
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4, err
+    else:
+        err = ((out.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+        assert err <= 2e-2, err
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):

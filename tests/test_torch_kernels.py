@@ -293,3 +293,102 @@ def test_flash_autograd_function_backward_is_the_plain_versions(monkeypatch, dty
     for got, want in zip(*grads):
         assert got.dtype == dtype
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# -- the card's f32 numerics (flash_fwd_tf32x3), emulated on the CPU ----------
+
+LOG2E = 1.4426950408889634
+NEG_INF_LOG2 = np.float32(-1e30 * LOG2E)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 as `cvt.rna.tf32.f32` rounds it: 10 mantissa
+    bits, ties away from zero (half an ulp added to the magnitude, the 13
+    low bits dropped)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor cores read an f32 operand of a tf32 product: the 13
+    low bits ignored."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as the kernel's wgmma passes compute it: each operand split
+    into x_hi = rna(x) and x_lo = x - x_hi, which the tensor cores read
+    truncated to tf32, then a_hi b_hi + a_lo b_hi + a_hi b_lo (a_lo b_lo
+    dropped); one pass is a_hi b_hi alone."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    out = ah @ bh
+    if passes == 3:
+        out = out + _tf32_trunc(a - ah) @ bh + ah @ _tf32_trunc(b - bh)
+    return out
+
+
+def _flash_tf32x3(q, k, v, mask, causal, bn, passes=3):
+    """The kernel's arithmetic in PyTorch: kv tiles of `bn` keys, scores in
+    log2 units (s * scale * log2(e) plus the mask addend, causally hidden
+    keys at -1e30 log2(e)), an online softmax with 2^x, and S = q k^T and P
+    v each through `_mm_3xtf32`."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale_log2 = np.float32(d ** -0.5 * LOG2E)
+    m = torch.full((b, h, lq), float("-inf"))
+    l = torch.zeros((b, h, lq))
+    acc = torch.zeros((b, h, lq, d))
+    rows = torch.arange(lq)[:, None]
+    for k0 in range(0, lk, bn):
+        kt, vt = k[:, :, k0 : k0 + bn], v[:, :, k0 : k0 + bn]
+        keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        madd = (1.0 - mask[:, k0 : k0 + bn].float()) * NEG_INF_LOG2
+        s = _mm_3xtf32(q, kt.transpose(-1, -2), passes) * scale_log2 + madd[:, None, None, :]
+        if causal:
+            s = torch.where(keys > rows, torch.tensor(NEG_INF_LOG2), s)
+        mx = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _mm_3xtf32(p, vt, passes)
+        m = mx
+    return acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+
+
+def test_tf32_rna_rounds_ties_away_from_zero_and_trunc_drops_the_low_bits():
+    one = 1.0 + 2.0 ** -10  # a tf32 value: 10 mantissa bits
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, one + 2.0 ** -11,
+                      3.0e-39, 0.0], dtype=torch.float32)
+    got = _tf32_rna(x).tolist()
+    assert got[:4] == [one, -one, 1.0, 1.0 + 2.0 ** -9]
+    assert got[5] == 0.0 and abs(got[4] - 3.0e-39) <= 2.0 ** -136  # subnormals keep 10 bits
+    hi = _tf32_rna(x[:4])
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert _tf32_trunc(x[:4]).tolist() == [1.0, -1.0, 1.0, one]
+
+
+@pytest.mark.parametrize(
+    "b, h, l, d, causal, bn", [(2, 3, 300, 32, False, 64), (1, 2, 512, 256, True, 32)]
+)
+def test_flash_tf32x3_numerics_match_jax_kernel(b, h, l, d, causal, bn):
+    """The split the card's f32 kernel runs (tf32 hi by cvt.rna's rule, lo
+    the rest as the tensor cores read it, three passes for q k^T and for P
+    v, the online softmax over its kv tiles in log2 units) meets the f32
+    tolerance of 1e-4 against the JAX package's
+    flash_attention on the same numpy inputs, on rows with a live key; one
+    tf32 pass does not."""
+    rng = np.random.default_rng(d + l)
+    q, k, v = (rng.normal(size=(b, h, l, d)).astype(np.float32) for _ in range(3))
+    mask = np.ones((b, l), dtype=np.int32)
+    if b > 1:
+        mask[1, 1:] = 0  # one live key: the row is v's first key
+    ref = np.asarray(
+        jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+                  causal=causal, block_q=64, block_k=64)
+    )
+    args = [torch.from_numpy(x) for x in (q, k, v, mask)]
+    out = _flash_tf32x3(*args, causal=causal, bn=bn).numpy()
+    assert out.shape == q.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    one_pass = _flash_tf32x3(*args, causal=causal, bn=bn, passes=1).numpy()
+    assert np.abs(one_pass - ref).max() > 1e-4
