@@ -538,13 +538,6 @@ class Engine:
                     errs_tick += n_err
                 if rows or n_err or dt > 1e-5:
                     spans_append((node._idx, node.name, t_prev, dt, rows))
-                take_aux = getattr(node, "take_aux_spans", None)
-                if take_aux is not None:
-                    # device-pipeline attribution: host-prep / dispatch /
-                    # wait spans accrue on pipeline threads between ticks
-                    # and ride the owning node's idx in the span store
-                    for a_name, a_t0, a_dur, a_rows in take_aux():
-                        spans_append((node._idx, a_name, a_t0, a_dur, a_rows))
                 if rows or n_err or dt > 1e-4:
                     rec.seq = seq = rec.seq + 1
                     rec_append(
@@ -555,6 +548,9 @@ class Engine:
         finally:
             self.current_node = None
         t_end = perf()
+        # device-pipeline attribution: host-prep / dispatch / wait spans
+        # accrue in the host-span ring on pipeline threads between ticks
+        ep.spans.extend(tr.pipeline_spans(t_end))
         ep.t1 = t_end
         m.tick_hist.observe(t_end - t0)
         m.ticks += 1

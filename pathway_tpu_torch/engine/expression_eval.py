@@ -23,6 +23,7 @@ from pathway_tpu_torch.internals.device_pipeline import (
     pipeline_enabled as _pipeline_enabled,
 )
 from pathway_tpu_torch.internals import expression as expr_mod
+from pathway_tpu_torch.internals import qtrace as _qtrace
 from pathway_tpu_torch.internals import sanitizer as _sanitizer
 from pathway_tpu_torch.internals.expression import (
     ApplyExpression,
@@ -530,6 +531,11 @@ def _compile_apply(expr: ApplyExpression, ctx: EvalContext) -> BatchProgram:
             return out
 
         if max_batch_size is not None:
+            if _qtrace.ENABLED:
+                # query spans through a batched UDF (an LLM's generate
+                # calls on /v2/answer): the batch's first start, and
+                # below its last end
+                _qtrace.tracker().mark_keys(keys, "udf_start", latest=True)
             chunks = [
                 live[start : start + max_batch_size]
                 for start in range(0, len(live), max_batch_size or len(live))
@@ -589,6 +595,8 @@ def _compile_apply(expr: ApplyExpression, ctx: EvalContext) -> BatchProgram:
                         except Exception as a_exc:  # noqa: BLE001
                             exc = a_exc
                     _chunk_error(chunk, exc)
+                if _qtrace.ENABLED:
+                    _qtrace.tracker().mark_keys(keys, "udf_end", latest=True)
                 return out
 
             # batched sync UDF: fun receives column lists, returns a column
@@ -598,6 +606,8 @@ def _compile_apply(expr: ApplyExpression, ctx: EvalContext) -> BatchProgram:
                     _assign(chunk, fun(*batch_args, **batch_kwargs))
                 except Exception as exc:  # noqa: BLE001
                     _chunk_error(chunk, exc)
+            if _qtrace.ENABLED:
+                _qtrace.tracker().mark_keys(keys, "udf_end", latest=True)
             return out
 
         for i in live:

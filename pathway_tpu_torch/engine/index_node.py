@@ -141,12 +141,6 @@ class ExternalIndexNode(Node):
         self._drain_index()
         return super().snapshot_state()
 
-    def take_aux_spans(self):
-        """Pipeline host-prep/dispatch/wait spans for the epoch tracer
-        (engine._process_time_traced pulls these on sampled epochs)."""
-        taker = getattr(self.index, "take_aux_spans", None)
-        return taker() if taker is not None else []
-
     def _after_restore(self) -> None:
         if not self.data_rows:
             return

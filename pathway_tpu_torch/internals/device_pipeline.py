@@ -36,6 +36,7 @@ path wholesale (read per call, like the other runtime gates).
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import threading
 import time
@@ -44,7 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 
-from pathway_tpu_torch.internals import memtrack, utilization
+from pathway_tpu_torch.internals import memtrack, tracing, utilization
 from pathway_tpu_torch.internals.metrics import MetricsRegistry
 
 
@@ -153,9 +154,8 @@ class DevicePipeline:
         self._error: Optional[BaseException] = None
         self._failed: List[Any] = []
         self._stop = False
-        self._spans: Deque[Tuple[str, float, float, int]] = collections.deque(
-            maxlen=512
-        )
+        # this pipeline's tag on its records in the host-span ring
+        self._serial = next(_SERIALS)
         self._thread = threading.Thread(
             target=self._run, name=f"{name}-dispatch", daemon=True
         )
@@ -213,8 +213,8 @@ class DevicePipeline:
             waited = True
         with self._cond:
             self._drains += 1
-            if waited:
-                self._note_span("pipeline:drain", t0, 0)
+        if waited:
+            self._note_span("pipeline:drain", t0, time.perf_counter() - t0, 0)
         if waited and utilization.ENABLED:
             utilization.tracker().note_span(
                 "drain", time.perf_counter() - t0
@@ -267,14 +267,12 @@ class DevicePipeline:
 
     # -- observability -----------------------------------------------------
 
-    def take_aux_spans(self) -> List[Tuple[str, float, float, int]]:
-        """Pop accumulated (name, start_perf, duration_s, rows) spans —
-        host-prep vs device-dispatch vs wait/drain attribution for the
-        epoch tracer."""
-        with self._cond:
-            spans = list(self._spans)
-            self._spans.clear()
-            return spans
+    @property
+    def _spans(self) -> List[Tuple[str, float, float, int]]:
+        """This pipeline's stage spans still in the host-span ring, as
+        (name, start_perf, duration_s, rows), oldest first; nothing is
+        consumed."""
+        return [r[:4] for r in tracing.host_spans().owned_by(self._serial)]
 
     def stats(self) -> Dict[str, Any]:
         with self._cond:
@@ -335,8 +333,9 @@ class DevicePipeline:
                 f"{self._error})"
             ) from self._error
 
-    def _note_span(self, kind: str, t0: float, rows: int) -> None:
-        self._spans.append((kind, t0, time.perf_counter() - t0, rows))
+    def _note_span(self, kind: str, t0: float, dur: float, rows: int) -> None:
+        if tracing.HOST_SPANS:
+            tracing.record_span(kind, t0, dur, rows, self._serial)
 
     def _note_completion(self, disp_end: float, meta: Dict[str, Any]) -> None:
         """A waited handle finished executing: estimate its device busy
@@ -352,14 +351,9 @@ class DevicePipeline:
         with self._cond:
             device_s = max(0.0, t_end - max(self._last_completion, disp_end))
             self._last_completion = t_end
-            self._spans.append(
-                (
-                    "pipeline:device",
-                    t_end - device_s,
-                    device_s,
-                    int(meta.get("rows", 0)),
-                )
-            )
+        self._note_span(
+            "pipeline:device", t_end - device_s, device_s, int(meta.get("rows", 0))
+        )
         from pathway_tpu_torch.internals import qtrace
 
         if qtrace.ENABLED:
@@ -421,10 +415,7 @@ class DevicePipeline:
         t0 = time.perf_counter()
         payload, meta = self._prepare(item)
         dur = time.perf_counter() - t0
-        with self._cond:
-            self._spans.append(
-                ("pipeline:prep", t0, dur, int(meta.get("rows", 0)))
-            )
+        self._note_span("pipeline:prep", t0, dur, int(meta.get("rows", 0)))
         if utilization.ENABLED:
             utilization.tracker().note_span("prep", dur)
         return payload, meta
@@ -450,8 +441,7 @@ class DevicePipeline:
                     t0 = time.perf_counter()
                     self._wait(handle)
                     wait_dur = time.perf_counter() - t0
-                    with self._cond:
-                        self._spans.append(("pipeline:wait", t0, wait_dur, 0))
+                    self._note_span("pipeline:wait", t0, wait_dur, 0)
                     if utilization.ENABLED:
                         utilization.tracker().note_span("wait", wait_dur)
                     self._note_completion(disp_end, old_meta)
@@ -468,10 +458,8 @@ class DevicePipeline:
                 rows = int(meta.get("rows", 0))
                 real = int(meta.get("real_tokens", 0))
                 slab = int(meta.get("slab_tokens", 0))
+                self._note_span("pipeline:dispatch", t0, disp_end - t0, rows)
                 with self._cond:
-                    self._spans.append(
-                        ("pipeline:dispatch", t0, disp_end - t0, rows)
-                    )
                     self._inflight.append((handle, disp_end, meta))
                     self._dispatched = seq
                     self._rows += rows
@@ -502,6 +490,7 @@ class DevicePipeline:
 # -- module registry / gauges ---------------------------------------------
 
 _PIPELINES: "weakref.WeakSet[DevicePipeline]" = weakref.WeakSet()
+_SERIALS = itertools.count(1)
 _STATS: Dict[str, int] = {"fallbacks": 0}
 # process-wide backpressure scale (internals/health.py AIMD loop); new
 # pipelines adopt it at construction so pressure survives pipeline churn

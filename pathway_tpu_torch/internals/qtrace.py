@@ -9,10 +9,13 @@ whether a tail spike is network, queueing, or device time.  This module
 closes that gap with deliberately read-only instrumentation:
 
   * **Spans** — the rest connector stamps each query's engine key as the
-    query id at ingress; hook sites along the path record wall-clock
-    marks (``enqueued``, ``picked``, ``search_start``, ``device_end``,
-    ``emitted``) and the response handler closes the span.  Stage
-    durations derive from consecutive marks:
+    query id at ingress; hook sites along the path record marks
+    (``enqueued``, ``picked``, ``search_start``, ``device_end``,
+    ``emitted``) and the response handler closes the span.  Marks are
+    ``time.perf_counter`` readings, the clock of the host-span ring
+    (internals/tracing.py); wall time is derived at export and on the
+    TCP wire (``to_wall``).  Stage durations derive from consecutive
+    marks:
 
         network  ingress  -> enqueued      (parse/validate/handoff)
         queue    enqueued -> picked        (buffered before the engine tick)
@@ -21,6 +24,17 @@ closes that gap with deliberately read-only instrumentation:
                                             when the index reports it)
         merge    device_end -> emitted     (result propagation + top-k merge)
         emit     emitted  -> respond       (subscribe -> future -> response)
+
+    A query whose row went through a batched UDF (an LLM's generate
+    call on ``/v2/answer``) also carries ``udf_start`` / ``udf_end``, the
+    first start and the last end of that batch's evaluation, and its
+    ``merge`` splits in three:
+
+        merge    device_end -> udf_start   (results joined, prompt built)
+        udf      udf_start  -> udf_end     (the batched UDF's calls)
+        post_udf udf_end    -> emitted     (the rest of the dataflow)
+
+    Finished spans stay in a bounded ring (``finished_between``).
 
   * **Digests** — per-stage and total latencies feed mergeable t-digest
     quantile sketches (``internals/metrics.Digest``), exported as
@@ -77,17 +91,45 @@ logger = logging.getLogger("pathway_tpu_torch.qtrace")
 # span taxonomy: marks in path order; stages between consecutive marks
 MARKS = (
     "ingress", "enqueued", "picked", "search_start", "device_end",
-    "emitted", "respond",
+    "udf_start", "udf_end", "emitted", "respond",
 )
-STAGES = ("network", "queue", "batch", "device", "merge", "emit")
-# (stage, closing mark) pairs, precomputed for the finish hot path
-_STAGE_PAIRS = tuple(zip(STAGES, MARKS[1:]))
+STAGES = (
+    "network", "queue", "batch", "device", "merge", "udf", "post_udf", "emit",
+)
+# (stage, closing mark) pairs, precomputed for the finish hot path: the
+# chain of a query without batched-UDF marks, and of one with them
+_STAGE_PAIRS = (
+    ("network", "enqueued"), ("queue", "picked"), ("batch", "search_start"),
+    ("device", "device_end"), ("merge", "emitted"), ("emit", "respond"),
+)
+_UDF_STAGE_PAIRS = _STAGE_PAIRS[:4] + (
+    ("merge", "udf_start"), ("udf", "udf_end"), ("post_udf", "emitted"),
+    ("emit", "respond"),
+)
+_CORE_STAGES = tuple(stage for stage, _mark in _STAGE_PAIRS)
+# finished spans kept for finished_between: a traced benchmark window of
+# 32 closed-loop clients finishes a few hundred
+FINISHED_CAPACITY = 4096
 
 _SLO_BUDGET = 0.01  # SLO semantics: at most 1% of queries over target
 _QUANTILES = (0.5, 0.95, 0.99, 0.999)
 # Chrome-trace pid for the "queries" process row: distinct from worker
 # pids so query spans merge cleanly into engine.dump_trace() output
 _TRACE_PID = 9999
+
+
+def _wall_offset() -> float:
+    """time.time() - time.perf_counter(): the wall clock read between two
+    perf_counter reads, the tightest of three brackets (a thread switch
+    inside one would skew it)."""
+    best = None
+    for _ in range(3):
+        p0 = time_mod.perf_counter()
+        wall = time_mod.time()
+        p1 = time_mod.perf_counter()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, wall - (p0 + p1) / 2)
+    return best[1]
 
 
 def _env_float(name: str, default: float) -> float:
@@ -116,7 +158,7 @@ class QueryTracer:
 
         self._lock = threading.Lock()
         self._digest_cls = Digest
-        # qid -> {"route", "marks": {name: wall}, "meta": {...}}
+        # qid -> {"route", "marks": {name: perf_counter}, "meta": {...}}
         self._pending: Dict[str, dict] = {}
         # engine key object -> qid (lets mark_batch avoid str() per row)
         self._pending_keys: Dict[Any, str] = {}
@@ -142,6 +184,10 @@ class QueryTracer:
         self.exemplars: deque = deque(maxlen=32)
         self.exemplar_k = _env_float("PATHWAY_QTRACE_EXEMPLAR_K", 1.5)
         self._recent: deque = deque(maxlen=64)  # last finished spans
+        self._finished: deque = deque(maxlen=FINISHED_CAPACITY)
+        # perf_counter -> wall-clock offset, sampled once (TraceStore's
+        # convention): marks stamp the cheap clock, export converts
+        self._wall_off = _wall_offset()
         # exemplar threshold cache: quantile() compresses the digest, so
         # computing p99 on EVERY finish would put a sort on the serving
         # hot path — refresh only right after a natural compress, when
@@ -159,12 +205,12 @@ class QueryTracer:
                 pass
         self.slo_window_s = _env_float("PATHWAY_SLO_WINDOW_S", 60.0)
         self.burn_sustain_s = _env_float("PATHWAY_SLO_BURN_SUSTAIN_S", 30.0)
-        self._slo_samples: deque = deque(maxlen=8192)  # (wall, violated)
+        self._slo_samples: deque = deque(maxlen=8192)  # (perf, violated)
         self.slo_violations = 0
         self._burn_since: Optional[float] = None
         self._burn_warned = False
         self.burn_episodes = 0
-        # concurrent device pressure: (wall, seconds, source) notes from
+        # concurrent device pressure: (perf, seconds, source) notes from
         # knn search dispatches and pipeline completions — tail context
         # ("was ingest hammering the chip while this query ran slow?")
         self._device_window: deque = deque(maxlen=512)
@@ -231,7 +277,7 @@ class QueryTracer:
         self._seq += 1
         if self._seq % self.sample_every:
             return False
-        now = time_mod.time()
+        now = time_mod.perf_counter()
         with self._lock:
             if len(self._pending) > 4096 and now - self._last_evict > 5.0:
                 self._evict_stale_locked(now)
@@ -248,18 +294,30 @@ class QueryTracer:
                 self._pending_keys[key] = qid
         return True
 
-    def mark(self, qid: str, name: str, **meta: Any) -> None:
+    def mark(self, qid: str, name: str, *, latest: bool = False,
+             **meta: Any) -> None:
+        """Stamp `name` on a pending query: its first stamp stays, or
+        with `latest` the last one does."""
         rec = self._pending.get(qid)
         if rec is None:
             return
-        rec["marks"].setdefault(name, time_mod.time())
+        if latest:
+            rec["marks"][name] = time_mod.perf_counter()
+        else:
+            rec["marks"].setdefault(name, time_mod.perf_counter())
         if meta:
             rec["meta"].update(meta)
         if self._worker_id != 0:
+            off = self._wall_off
             self._remote_out.append(
-                {"qid": qid, "marks": dict(rec["marks"]),
+                {"qid": qid,
+                 "marks": {k: v + off for k, v in rec["marks"].items()},
                  "meta": dict(rec["meta"])}
             )
+
+    def to_wall(self, t: float) -> float:
+        """A mark (perf_counter) as wall-clock seconds."""
+        return t + self._wall_off
 
     def mark_batch(self, batch, name: str = "picked") -> None:
         """Stamp every pending query whose engine key appears in a flushed
@@ -273,7 +331,8 @@ class QueryTracer:
             if qid is not None:
                 self.mark(qid, name)
 
-    def mark_keys(self, keys, name: str, **meta: Any) -> None:
+    def mark_keys(self, keys, name: str, *, latest: bool = False,
+                  **meta: Any) -> None:
         """Stamp pending queries by engine key (index/search operators
         see keys, not qids).  Free when nothing is in flight."""
         pk = self._pending_keys
@@ -282,7 +341,7 @@ class QueryTracer:
         for k in keys:
             qid = pk.get(k)
             if qid is not None:
-                self.mark(qid, name, **meta)
+                self.mark(qid, name, latest=latest, **meta)
 
     def note_batch_occupancy(
         self, keys, occupancy: int, waited_ms: Optional[float] = None
@@ -405,11 +464,13 @@ class QueryTracer:
     def note_device_window(self, seconds: float, *, source: str = "search") -> None:
         """Record device busy time from any dispatcher (knn search,
         ingest pipeline completion) into the rolling pressure window."""
-        self._device_window.append((time_mod.time(), float(seconds), source))
+        self._device_window.append(
+            (time_mod.perf_counter(), float(seconds), source)
+        )
 
     def device_busy_s(self, window_s: float = 30.0) -> float:
         """Total noted device-busy seconds over the trailing window."""
-        now = time_mod.time()
+        now = time_mod.perf_counter()
         return round(
             sum(s for w, s, _ in self._device_window if now - w <= window_s),
             6,
@@ -418,7 +479,7 @@ class QueryTracer:
     def finish(self, qid: str) -> Optional[dict]:
         """Close the span at response time; feed digests, SLO window, and
         the exemplar ring.  Returns the finished record (tests)."""
-        now = time_mod.time()
+        now = time_mod.perf_counter()
         with self._lock:
             rec = self._pending.pop(qid, None)
             if rec is None:
@@ -449,9 +510,20 @@ class QueryTracer:
             self.completed += 1
             self._finish_walls.append(now)
             self._recent.append(rec)
+            self._finished.append(rec)
             self._note_slo_locked(now, total * 1000.0)
             self._maybe_exemplar_locked(rec, total * 1000.0)
         return rec
+
+    def finished_between(self, t0: float, t1: float) -> List[dict]:
+        """Finished spans (records with their marks, perf_counter) whose
+        ingress..respond overlaps [t0, t1], oldest first; nothing is
+        consumed."""
+        with self._lock:
+            return [
+                r for r in self._finished
+                if r["marks"]["ingress"] <= t1 and r["marks"]["respond"] >= t0
+            ]
 
     def _stage_breakdown(self, rec: dict) -> Dict[str, float]:
         marks = rec["marks"]
@@ -460,7 +532,8 @@ class QueryTracer:
         # negative) — deltas are >= 0 by construction
         stages = {}
         last = marks.get("ingress", 0.0)
-        for stage, name in _STAGE_PAIRS:
+        pairs = _UDF_STAGE_PAIRS if "udf_start" in marks else _STAGE_PAIRS
+        for stage, name in pairs:
             t = marks.get(name, last)
             if t < last:
                 t = last
@@ -539,7 +612,7 @@ class QueryTracer:
 
     def burn_rate(self) -> Optional[float]:
         with self._lock:
-            rate = self._burn_rate_locked(time_mod.time())
+            rate = self._burn_rate_locked(time_mod.perf_counter())
         return round(rate, 4) if rate is not None else None
 
     # -- exemplars ---------------------------------------------------------
@@ -573,7 +646,7 @@ class QueryTracer:
         }
         exemplar["threshold_ms"] = round(thresh, 4)
         exemplar["replica"] = replica
-        exemplar["wall"] = rec["marks"].get("respond")
+        exemplar["wall"] = self.to_wall(rec["marks"]["respond"])
         exemplar["device_busy_s_30s"] = self.device_busy_s()
         # slow-query exemplars carry the result row's lineage when the
         # provenance tracker is armed — "why was THIS row slow AND where
@@ -647,14 +720,15 @@ class QueryTracer:
                         break
             if rec is None:
                 return
+            off = self._wall_off
             for name, wall in marks.items():
-                rec["marks"].setdefault(name, wall)
+                rec["marks"].setdefault(name, wall - off)
             rec["meta"].update(meta)
 
     # -- surfaces ----------------------------------------------------------
     def qps(self, window_s: float = 10.0) -> float:
         with self._lock:
-            return self._qps_locked(time_mod.time(), window_s)
+            return self._qps_locked(time_mod.perf_counter(), window_s)
 
     def _qps_locked(self, now: float, window_s: float = 10.0) -> float:
         recent = [w for w in self._finish_walls if now - w <= window_s]
@@ -694,7 +768,7 @@ class QueryTracer:
                     "p99_ms": _ms(digest.quantile(0.99)),
                     "p999_ms": _ms(digest.quantile(0.999)),
                 }
-            now = time_mod.time()
+            now = time_mod.perf_counter()
             burn = self._burn_rate_locked(now)
             exemplars = [
                 {
@@ -791,8 +865,9 @@ class QueryTracer:
                 }
             )
             cursor = t0
-            for stage in STAGES:
-                dur_ms = (rec.get("stages_ms") or {}).get(stage, 0.0)
+            stages_ms = rec.get("stages_ms") or {}
+            for stage in STAGES if "udf" in stages_ms else _CORE_STAGES:
+                dur_ms = stages_ms.get(stage, 0.0)
                 dur = dur_ms / 1000.0
                 te.append(
                     {
@@ -808,6 +883,22 @@ class QueryTracer:
                 )
                 cursor += dur
         return {"traceEvents": te, "displayTimeUnit": "ms"}
+
+
+def stage_intervals(rec: dict) -> List[tuple]:
+    """(stage, start, end) of a span's stages between its marks, on the
+    marks' clock (perf_counter): the mark chain as _stage_breakdown
+    walks it, without charged device time; empty stages left out."""
+    marks = rec["marks"]
+    pairs = _UDF_STAGE_PAIRS if "udf_start" in marks else _STAGE_PAIRS
+    out = []
+    last = marks.get("ingress", 0.0)
+    for stage, name in pairs:
+        t = max(marks.get(name, last), last)
+        if t > last:
+            out.append((stage, last, t))
+        last = t
+    return out
 
 
 def _ms(v: Optional[float]) -> Optional[float]:

@@ -21,6 +21,15 @@ Overhead budget: unsampled ticks pay one attribute load + one modulo;
 sampled ticks add one tuple append per active node.  The perf-smoke
 guard (tests/test_perf_smoke.py) holds the default-sampling cost of the
 whole observability layer under 5% of the bare loop.
+
+Host spans: beside the per-engine epoch store, one process-wide ring
+(``SpanRing``) holds the spans that threads other than the engine loop
+record on the same ``time.perf_counter`` clock: the device pipeline's
+stages, the decoder's prefill / decode / readback, ingest's copies and
+index writes.  ``PATHWAY_TRACE=0`` turns it off too; every hook site
+then costs one read of ``HOST_SPANS``.  Readers (a sampled epoch, the
+``/profile`` export, a benchmark) take ``spans_between(t0, t1)``, which
+consumes nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +40,96 @@ import threading
 import time as time_mod
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional
+
+
+# ---------------------------------------------------------------------------
+# Process-wide host-span ring
+# ---------------------------------------------------------------------------
+
+HOST_SPANS = os.environ.get("PATHWAY_TRACE") != "0"
+
+# Records the ring keeps.  A 5 s traced window of 256-token ingest at
+# ~4k chunks/s records about six spans a dispatch (prep, dispatch, wait,
+# device, encode.h2d, index.write) at tens of dispatches a second, and
+# a generate call about 40; the window, the drain after it and the
+# set-up before it stay well under this, so a reader at a run's end
+# still finds its window whole.  A record is a 6-tuple (~200 bytes).
+SPAN_RING_CAPACITY = 1 << 16
+
+
+class SpanRing:
+    """Bounded, thread-safe ring of host spans.
+
+    Each record is ``(name, start_perf_s, duration_s, rows, thread_name,
+    owner)``: the span's name, its start on ``time.perf_counter``, its
+    length, a row count (prompts, keys, batch rows; 0 where none), the
+    name of the thread that recorded it, and ``owner``, an opaque tag a
+    producer sets to read its own records back (a DevicePipeline's serial;
+    None elsewhere).  The oldest records fall out first.
+
+    The ring keeps each record beside the time it was appended, which is
+    never before its span's end (a span on the card's clock, such as the
+    decoder's first token, is appended well after it ends); so a reader
+    scans back from the newest record only as far as the interval it
+    asks for."""
+
+    def __init__(self, capacity: int = SPAN_RING_CAPACITY):
+        self.capacity = max(1, int(capacity))
+        self._records: deque = deque(maxlen=self.capacity)  # (appended, record)
+        self._lock = threading.Lock()
+        self.recorded = 0  # records ever appended
+
+    def record(self, name: str, start: float, duration: float,
+               rows: int = 0, owner: Any = None) -> None:
+        rec = (name, start, duration, rows,
+               threading.current_thread().name, owner)
+        with self._lock:
+            self._records.append((time_mod.perf_counter(), rec))
+            self.recorded += 1
+
+    def spans_between(self, t0: float, t1: float) -> List[tuple]:
+        """The records that overlap [t0, t1], in the order they were
+        appended."""
+        out: List[tuple] = []
+        with self._lock:
+            for appended, rec in reversed(self._records):
+                if appended < t0:
+                    break  # this span and every older one ended before t0
+                if rec[1] + rec[2] >= t0 and rec[1] <= t1:
+                    out.append(rec)
+        out.reverse()
+        return out
+
+    def holds_since(self, t: float) -> bool:
+        """No record that ended at or after `t` has fallen out."""
+        with self._lock:
+            if self.recorded <= self.capacity or not self._records:
+                return True
+            return self._records[0][0] < t
+
+    def owned_by(self, owner: Any) -> List[tuple]:
+        """The records that `owner` tagged, oldest first."""
+        with self._lock:
+            return [r for _appended, r in self._records if r[5] == owner]
+
+
+_RING = SpanRing()
+
+
+def host_spans() -> SpanRing:
+    """The process's host-span ring."""
+    return _RING
+
+
+def record_span(name: str, start: float, duration: float,
+                rows: int = 0, owner: Any = None) -> None:
+    """Append one host span to the ring (callers check HOST_SPANS)."""
+    _RING.record(name, start, duration, rows, owner)
+
+
+def spans_between(t0: float, t1: float) -> List[tuple]:
+    """The ring's records overlapping [t0, t1]; nothing is consumed."""
+    return _RING.spans_between(t0, t1)
 
 
 class _EpochRecord:
@@ -89,6 +188,8 @@ class TraceStore:
         # perf_counter -> wall-clock offset, sampled once (flight-recorder
         # convention): spans stamp the cheap clock, export converts
         self._epoch_off = time_mod.time() - time_mod.perf_counter()
+        # the host-span ring is read from here on by the sampled epochs
+        self._ring_from = time_mod.perf_counter()
 
     # -- engine-loop hooks -------------------------------------------------
     def should_sample(self, time: int) -> bool:
@@ -112,6 +213,22 @@ class TraceStore:
         cur.wm = (wm_start, wm_end - wm_start)
         self.epochs.append(cur)
         self.current = None
+
+    def pipeline_spans(self, t_end: float) -> List[tuple]:
+        """The host-span ring's device-pipeline spans (pipeline:prep /
+        dispatch / wait / drain / device) that ended since the previous
+        sampled epoch read them, as epoch spans of node -1: they run on
+        pipeline threads, concurrent with the ticks."""
+        t_from, self._ring_from = self._ring_from, t_end
+        if not HOST_SPANS:
+            return []
+        return [
+            (-1, name, t0, dur, rows)
+            for name, t0, dur, rows, _thread, _owner in _RING.spans_between(
+                t_from, t_end
+            )
+            if name.startswith("pipeline:") and t_from < t0 + dur <= t_end
+        ]
 
     def note_edge(
         self,
@@ -187,9 +304,9 @@ def critical_path_from_events(
             _, w, _ep, idx, name, _ts, dur, rows = ev
             entries.append(
                 {
-                    # aux spans from the async device pipeline
-                    # (pipeline:prep / pipeline:dispatch / pipeline:wait /
-                    # pipeline:drain) ride the owning node's idx but are
+                    # spans of the async device pipeline, read from the
+                    # host-span ring (pipeline:prep / pipeline:dispatch /
+                    # pipeline:wait / pipeline:drain, node -1) are
                     # attributed as their own kind: they run on pipeline
                     # threads CONCURRENT with the tick, so "node" would
                     # misread as serial engine-loop time.  The estimated

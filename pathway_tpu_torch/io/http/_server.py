@@ -60,6 +60,7 @@ class PathwayWebserver:
         self._loop: asyncio.AbstractEventLoop | None = None
         self._started = threading.Event()
         self._start_lock = threading.Lock()
+        self._thread: threading.Thread | None = None
 
     def register_route(
         self,
@@ -92,8 +93,15 @@ class PathwayWebserver:
         }
 
     def _ensure_started(self) -> None:
+        """Start the server's thread once, and wait up to 10 s for it to
+        listen. A thread still starting is waited for again, never
+        joined by a second server on the port (which would die with
+        EADDRINUSE); only a thread that has died is replaced."""
         with self._start_lock:
             if self._started.is_set():
+                return
+            if self._thread is not None and self._thread.is_alive():
+                self._started.wait(timeout=10)
                 return
 
             def run_loop():
@@ -103,7 +111,7 @@ class PathwayWebserver:
                 loop.run_until_complete(self._serve())
                 loop.run_forever()
 
-            t = threading.Thread(
+            t = self._thread = threading.Thread(
                 target=run_loop, daemon=True, name=f"webserver:{self.port}"
             )
             t.start()

@@ -33,11 +33,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.models.transformer import (
     _attention,
     _compute_dtype,
@@ -402,7 +404,19 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
     A greedy pick takes each slice's max and its global index, then the
     max over the slices, equal scores going to the lowest index, as an
     argmax over the whole vocabulary does; a sampled pick gathers the
-    logits first."""
+    logits first.
+
+    Host spans (internals/tracing.py, while HOST_SPANS): `decoder.prefill`
+    (the host enqueueing the prefill and the first pick), one
+    `decoder.decode` a step, `decoder.readback` (the one copy to the
+    host, where the host waits for the card), and `decoder.first_token`,
+    from the call's start to the moment the card finished the first pick.
+    On the card that moment is read from two CUDA events after the
+    readback, which adds no synchronisation: the readback's end less the
+    card's time from the first pick to the last step. On the CPU it is
+    the end of `decoder.prefill`."""
+    spans = _tracing.HOST_SPANS
+    t_call = time.perf_counter() if spans else 0.0
     b, l = np.shape(ids)
     if l + max_new_tokens > config.max_len:
         raise ValueError(
@@ -412,6 +426,7 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
         )
     shards = params if isinstance(params, list) else [params]
     device = shards[0]["embed"].device
+    events = spans and device.type == "cuda"
     ids = _to_device_ints(ids, device).long()
     mask = _to_device_ints(mask, device).long()
     # the head in f32 once, not once per step (the same product)
@@ -450,6 +465,12 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
                          kv_valid=kv_valid, slot_offset=0)
         rows = torch.arange(b, device=device)
         tok = sample([lg[rows.to(lg.device), (lengths - 1).to(lg.device)] for lg in logits])
+        if events:
+            first_pick = torch.cuda.Event(enable_timing=True)
+            first_pick.record(torch.cuda.current_stream(device))
+        if spans:
+            t_step = t_first = time.perf_counter()
+            _tracing.record_span("decoder.prefill", t_call, t_first - t_call, b)
         toks = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
         ones = torch.ones((b, 1), dtype=torch.int64, device=device)
         for t in range(max_new_tokens):
@@ -461,4 +482,21 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
                              kv_cache=caches if len(shards) > 1 else caches[0],
                              kv_valid=kv_valid, slot_offset=l + t)
             tok = sample([lg[:, 0] for lg in logits])
-    return toks.cpu().numpy().astype(np.int32)
+            if spans:
+                t_next = time.perf_counter()
+                _tracing.record_span("decoder.decode", t_step, t_next - t_step, b)
+                t_step = t_next
+    if not spans:
+        return toks.cpu().numpy().astype(np.int32)
+    if events:
+        last_step = torch.cuda.Event(enable_timing=True)
+        last_step.record(torch.cuda.current_stream(device))
+    t_read = time.perf_counter()
+    out = toks.cpu()
+    t_done = time.perf_counter()
+    _tracing.record_span("decoder.readback", t_read, t_done - t_read, b)
+    # the card finished the first pick this long before the last step,
+    # which the readback waited for
+    first = t_done - first_pick.elapsed_time(last_step) / 1e3 if events else t_first
+    _tracing.record_span("decoder.first_token", t_call, first - t_call, b)
+    return out.numpy().astype(np.int32)

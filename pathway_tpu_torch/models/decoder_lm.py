@@ -11,12 +11,14 @@ otherwise, and the hashing tokenizer.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.models import hf_loader
 from pathway_tpu_torch.models.decoder import (
     MISTRAL_7B_DECODER,
@@ -110,14 +112,29 @@ class ChatModel:
         max_new_tokens: int = 16,
         temperature: float = 0.0,
     ) -> List[str]:
+        """Host spans (while tracing.HOST_SPANS): `llm.generate` around
+        the call (rows: the prompts) holding `llm.tokenize`, the
+        decoder's spans (generate_tokens) and `llm.detokenize`."""
         if not prompts:
             return []
+        spans = _tracing.HOST_SPANS
+        t0 = time.perf_counter() if spans else 0.0
         ids, mask = self.encode_prompts(prompts, max_new_tokens)
+        if spans:
+            t1 = time.perf_counter()
+            _tracing.record_span("llm.tokenize", t0, t1 - t0, len(prompts))
         tokens = generate_tokens(
             self.params, self.config, ids, mask,
             max_new_tokens=max_new_tokens, temperature=temperature,
         )
-        return [self.tokenizer.decode(row) for row in tokens[: len(prompts)]]
+        if spans:
+            t2 = time.perf_counter()
+        out = [self.tokenizer.decode(row) for row in tokens[: len(prompts)]]
+        if spans:
+            t3 = time.perf_counter()
+            _tracing.record_span("llm.detokenize", t2, t3 - t2, len(prompts))
+            _tracing.record_span("llm.generate", t0, t3 - t0, len(prompts))
+        return out
 
 
 def _to_device(tree, device):

@@ -618,9 +618,12 @@ class _Tree(nn.Module):
 
 def _to_device_ints(x, device) -> torch.Tensor:
     """Wire-narrowed ids / masks / segment ids (int16, or uint16 for
-    32768-65535 vocabularies) upcast before any indexing."""
+    32768-65535 vocabularies) upcast before any indexing: host arrays to
+    int32, tensors to int64 unless they are int32 already (a slab the
+    ingest dispatch copied ahead of its encode)."""
     if torch.is_tensor(x):
-        return to_device(x, device).to(torch.int64)
+        x = to_device(x, device)
+        return x if x.dtype == torch.int32 else x.to(torch.int64)
     return to_device(torch.from_numpy(np.asarray(x).astype(np.int32)), device)
 
 

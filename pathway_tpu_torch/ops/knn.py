@@ -36,6 +36,7 @@ import torch
 from pathway_tpu_torch._device import resolve_device, to_device
 from pathway_tpu_torch.internals import costmodel, memtrack
 from pathway_tpu_torch.internals import qtrace as _qtrace
+from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.internals import serving as _serving
 from pathway_tpu_torch.internals.mesh_backend import pack_batch_dp
 from pathway_tpu_torch.models.tokenizer import (
@@ -46,7 +47,7 @@ from pathway_tpu_torch.models.tokenizer import (
     pack_token_budget,
     pad_encoded,
 )
-from pathway_tpu_torch.models.transformer import FLASH_MIN_LEN
+from pathway_tpu_torch.models.transformer import FLASH_MIN_LEN, _to_device_ints
 from pathway_tpu_torch.ops.kernels.knn_topk import METRICS, knn_topk, next_pow2
 from pathway_tpu_torch.parallel.collectives import all_gather
 from pathway_tpu_torch.parallel.mesh import NamedSharding, P, same_device
@@ -354,6 +355,9 @@ class DeviceKnnIndex:
         if _serving.ENABLED and keys:
             _serving.note_index_add(len(keys))
         if torch.is_tensor(vectors):
+            # host span index.write: slot assignment, the slot copy and
+            # the enqueued write
+            t0 = time_mod.perf_counter() if _tracing.HOST_SPANS else 0.0
             self._flush()
             new = len(keys) - sum(1 for k in keys if k in self._slot_of_key)
             if memtrack.ENABLED and new:
@@ -370,6 +374,8 @@ class DeviceKnnIndex:
             # in place: the buffer is updated where it lies (the JAX package
             # donates the old buffer to the scatter for the same effect)
             self._write(slots, self._pad_cols(self._normalize(vectors.to(torch.float32))), True)
+            if _tracing.HOST_SPANS:
+                _tracing.record_span("index.write", t0, time_mod.perf_counter() - t0, len(keys))
             return
         vectors = self._normalize(np.asarray(vectors, dtype=np.float32))
         if memtrack.ENABLED:
@@ -671,6 +677,16 @@ class FusedEmbedSearch:
         kind, keys, ids, second, slots = payload
         lm = self.encoder.lm
         shards = None
+        # host span encode.h2d: the slab's ids, its segment ids (or mask)
+        # and its gather slots, queued to the card before the encode (a
+        # dp-packed slab's ids go to each position inside its encode)
+        t0 = time_mod.perf_counter() if _tracing.HOST_SPANS else 0.0
+        if kind != "packed_dp":
+            ids, second = _to_device_ints(ids, self.device), _to_device_ints(second, self.device)
+        if slots is not None:
+            at = to_device(torch.tensor(slots, dtype=torch.int64).reshape(-1, 2), self.device)
+        if _tracing.HOST_SPANS:
+            _tracing.record_span("encode.h2d", t0, time_mod.perf_counter() - t0, len(keys))
         if kind == "packed_dp":
             sharding = self.backend.batch_sharding()
             pooled = torch.cat([
@@ -685,7 +701,6 @@ class FusedEmbedSearch:
         if kind == "classic":
             emb = lm(ids, second)[: len(keys)]
         else:
-            at = to_device(torch.tensor(slots, dtype=torch.int64).reshape(-1, 2), pooled.device)
             emb = pooled[at[:, 0], at[:, 1]]
         if keys:
             self.index.add_batch(keys, emb, shards=shards)

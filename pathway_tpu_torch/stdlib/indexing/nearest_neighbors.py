@@ -327,11 +327,6 @@ class _FusedKnnIndexImpl(IndexImpl):
             self._pipeline.close()
             self._pipeline_closed = True
 
-    def take_aux_spans(self):
-        if self._pipeline is None:
-            return []
-        return self._pipeline.take_aux_spans()
-
     def add_many(self, keys, values, metas) -> None:
         from pathway_tpu_torch.internals.device_pipeline import DevicePipelineError
 

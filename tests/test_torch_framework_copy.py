@@ -38,7 +38,31 @@ _COPIED_FILES = ("cli.py", "universes.py")
 EDITED = {
     "internals/device_pipeline.py": (
         "_default_wait reads back one element of a CUDA tensor (or returns for "
-        "CPU tensors and None) in place of the jnp.sum readback"
+        "CPU tensors and None) in place of the jnp.sum readback; the stage spans "
+        "go to the process's host-span ring (internals/tracing.py) in place of a "
+        "private deque, _spans is a read-only view of this pipeline's records "
+        "there, and take_aux_spans is gone"
+    ),
+    "internals/tracing.py": (
+        "a process-wide host-span ring (SpanRing, record_span, spans_between) on "
+        "perf_counter, off with PATHWAY_TRACE=0, which the pipeline, decoder and "
+        "ingest record into; TraceStore.pipeline_spans hands a sampled epoch the "
+        "ring's pipeline spans in place of the nodes' take_aux_spans"
+    ),
+    "engine/engine.py": (
+        "a sampled epoch takes the device pipeline's spans from the host-span "
+        "ring (TraceStore.pipeline_spans) in place of each node's take_aux_spans"
+    ),
+    "internals/qtrace.py": (
+        "marks are perf_counter readings (the host-span ring's clock), made wall "
+        "time at export and on the TCP wire; udf_start / udf_end marks split the "
+        "merge stage of a query through a batched UDF into merge, udf and "
+        "post_udf; finished spans stay in a bounded ring (finished_between); "
+        "stage_intervals gives a span's stages for the profiler's export"
+    ),
+    "engine/expression_eval.py": (
+        "a batched UDF's evaluation stamps udf_start / udf_end on the query spans "
+        "of its rows' keys (internals/qtrace.py)"
     ),
     "internals/memtrack.py": (
         "device_memory_stats reads torch.cuda's allocator stats and the card's "
@@ -58,7 +82,9 @@ EDITED = {
         "session's CUPTI teardown; a process's first capture on a card sets CUPTI "
         "up in a session of its own before the window (setup_seconds); "
         "capture_local drives a bf16 torch matmul on device= (None: the CUDA "
-        "card) in place of a jitted jnp chain"
+        "card) in place of a jitted jnp chain; capture adds the host-span ring's "
+        "and the finished query spans of its window to the trace as a 'host "
+        "spans' process, on the trace's clock through an anchor record_function"
     ),
     "analysis/capacity.py": (
         "predict_index_bytes predicts the port's DeviceKnnIndex allocation from "
@@ -95,11 +121,13 @@ EDITED = {
         "the vector impl keeps its host mirror and numpy search for a CPU index only, "
         "and on the card a degraded monitor makes search_many raise DeviceDegradedError "
         "instead of moving the search to the host; the fused impl's close() stops its "
-        "DevicePipeline at the run's end, which would hold the index's device memory"
+        "DevicePipeline at the run's end, which would hold the index's device memory; "
+        "take_aux_spans is gone (the epoch tracer reads the host-span ring)"
     ),
     "engine/index_node.py": (
         "ExternalIndexNode.on_end calls the index backend's close() where it has one, "
-        "so that the fused index's pipeline threads do not hold it past its run"
+        "so that the fused index's pipeline threads do not hold it past its run; "
+        "take_aux_spans is gone (the epoch tracer reads the host-span ring)"
     ),
     "io/_connector_runtime.py": (
         "when the streaming driver's run ends it detaches its sinks: they drop the "
@@ -114,7 +142,10 @@ EDITED = {
         "a REST connector takes a micro-batcher of its own when its run starts and "
         "retires it when the run ends; shared by the route for the life of the "
         "process, as in the JAX package, a server on the route in a later run "
-        "parked its requests on the ended run's connector and never answered"
+        "parked its requests on the ended run's connector and never answered; "
+        "PathwayWebserver._ensure_started starts the server's thread once and "
+        "waits again for a thread still starting, where the JAX package's starts "
+        "a second server on the port after 10 s, which dies with EADDRINUSE"
     ),
     "internals/serving.py": (
         "ServingTier.batcher makes a new micro-batcher for each REST connector's "
