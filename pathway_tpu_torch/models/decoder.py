@@ -11,7 +11,10 @@ Mistral-7B recipe, with
     slots of the cache it was given and returns that same cache;
   * a generation loop of decode steps on the device with no host sync per
     token: the tokens are gathered on the device and copied to the host
-    once.
+    once;
+  * on the card, a greedy decode over one tree replayed as captured CUDA
+    graphs (`DecodeGraphs`): one graph launch a token over a persistent
+    cache, in place of a Python pass that launches every kernel.
 
 Parameters are a plain dict in the JAX package's layout and key names
 (dense weights [in, out]), so models/convert.decoder_params_from_jax
@@ -33,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -223,26 +227,41 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _cache_mask(kv_valid, slot_offset: int, l: int):
-    """[B, 1, 1, L, slot_offset + L] True where a query may NOT attend a
-    cache slot: slot j is attended when kv_valid[b, j] and j <=
-    slot_offset + query index. Shared by every layer."""
-    end = slot_offset + l
+def _cache_mask(kv_valid, slot_offset, l: int, end: Optional[int] = None):
+    """[B, 1, 1, L, end] True where a query may NOT attend a cache slot:
+    slot j is attended when kv_valid[b, j] and j <= slot_offset + query
+    index. Shared by every layer. `end` is slot_offset + L unless given: a
+    captured step passes its bucket, with slot_offset a device tensor [1],
+    so the host never reads the slot."""
+    if end is None:
+        end = slot_offset + l
     slot = torch.arange(end, device=kv_valid.device)
     q_slot = slot_offset + torch.arange(l, device=kv_valid.device)
     attend = (slot[None, None, :] <= q_slot[None, :, None]) & kv_valid[:, None, :end].bool()
     return ~attend[:, None, None]
 
 
+def _write_slots(cache, slot_offset, x):
+    """cache[:, :, slot_offset : slot_offset + L] = x, in place. A device
+    slot_offset ([1], a captured one-token step's) writes through
+    index_copy_."""
+    if torch.is_tensor(slot_offset):
+        cache.index_copy_(2, slot_offset, x)
+    else:
+        cache[:, :, slot_offset : slot_offset + x.shape[2]] = x
+
+
 def _cache_attention(q, ck, cv, dead, n_rep: int, dtype):
     """Dense f32 attention of q [B, QH, L, hd] over the cache slots
-    [0, slot_offset + L), `dead` from `_cache_mask`. The query heads are
+    [0, end), `dead` from `_cache_mask`. The query heads are
     grouped per kv head by a reshape (head = kv head * n_rep + r,
     `_repeat_kv`'s order), so the cache is never repeated. Slots at and
     past slot_offset + L are masked for every query row, so leaving them
     out is exact for any row with a live slot, which a decode row always
     has (its own); a row with none is finite but not the JAX package's
-    average over all max_len slots."""
+    average over all max_len slots. A masked slot inside [0, end) weighs
+    exp(NEG_INF - max) = 0 exactly, so a captured step's wider bucket
+    changes only the order of its sums."""
     b, qh, l, hd = q.shape
     end = dead.shape[-1]
     kvh = qh // n_rep
@@ -257,7 +276,8 @@ def _cache_attention(q, ck, cv, dead, n_rep: int, dtype):
 
 def decoder_forward(params, config: DecoderConfig, ids, mask, *,
                     positions=None, kv_cache=None, kv_valid=None,
-                    slot_offset: int = 0, use_flash: Optional[bool] = None):
+                    slot_offset=0, use_flash: Optional[bool] = None,
+                    end: Optional[int] = None):
     """ids, mask: [B, L] integer tensors on the weights' device
     (left-aligned prompts).
 
@@ -281,10 +301,10 @@ def decoder_forward(params, config: DecoderConfig, ids, mask, *,
     the caches)."""
     if isinstance(params, list):
         return _forward_positions(params, config, ids, mask, positions, kv_cache, kv_valid,
-                                  slot_offset, use_flash, psum), kv_cache
+                                  slot_offset, use_flash, psum, end), kv_cache
     logits = _forward_positions([params], config, ids, mask, positions,
                                 None if kv_cache is None else [kv_cache], kv_valid,
-                                slot_offset, use_flash, lambda parts: parts)
+                                slot_offset, use_flash, lambda parts: parts, end)
     return logits[0], kv_cache
 
 
@@ -303,12 +323,13 @@ def _f32_product(a, w):
 
 
 def _forward_positions(shards: list, config: DecoderConfig, ids, mask, positions, caches,
-                       kv_valid, slot_offset: int, use_flash, reduce) -> list:
+                       kv_valid, slot_offset, use_flash, reduce, end=None) -> list:
     """`decoder_forward`'s body over a list of positions: one for the
     whole tree, one per tp position. `reduce` takes every position's wo
     and down products and returns what each adds to its residual: the
     identity, or a psum where the positions hold row shards (whose
-    partials are f32, `_f32_product`)."""
+    partials are f32, `_f32_product`). A tensor slot_offset (with `end`)
+    is a static decode step's: no host integer of the step enters it."""
     dtype = _compute_dtype(config)
     product = (lambda a, w: a @ w) if len(shards) == 1 else _f32_product
     b, l = ids.shape
@@ -321,13 +342,14 @@ def _forward_positions(shards: list, config: DecoderConfig, ids, mask, positions
         x = [_as(e, dtype) for e in vocab_parallel_lookup(shards, [ids.long().to(d) for d in devices])]
     hd = config.head_dim
     n_rep = config.q_heads // config.kv_heads
-    is_prefill = caches is not None and slot_offset == 0 and l > 1
+    is_prefill = (caches is not None and not torch.is_tensor(slot_offset)
+                  and slot_offset == 0 and l > 1)
     cos, sin = _rope_tables(positions, hd, config.rope_theta)
     ropes = [(cos.to(d), sin.to(d)) for d in devices]
     if caches is not None:
         valid = [kv_valid.to(d) for d in devices]
         if not is_prefill:
-            dead = [_cache_mask(v, slot_offset, l) for v in valid]
+            dead = [_cache_mask(v, slot_offset, l, end) for v in valid]
     if caches is None:
         masks = [mask.to(d) for d in devices]
 
@@ -346,8 +368,8 @@ def _forward_positions(shards: list, config: DecoderConfig, ids, mask, positions
 
             if caches is not None:
                 ck, cv = caches[t][li]["k"], caches[t][li]["v"]
-                ck[:, :, slot_offset : slot_offset + l] = k
-                cv[:, :, slot_offset : slot_offset + l] = v
+                _write_slots(ck, slot_offset, k)
+                _write_slots(cv, slot_offset, v)
                 if is_prefill:
                     # no slot past this call's L can be live yet, so attention
                     # over the cache is causal attention over this call's K/V
@@ -386,7 +408,7 @@ def _forward_positions(shards: list, config: DecoderConfig, ids, mask, positions
 
 def generate_tokens(params, config: DecoderConfig, ids, mask, *,
                     max_new_tokens: int = 16, temperature: float = 0.0,
-                    seed: int = 0) -> np.ndarray:
+                    seed: int = 0, graphs: Optional["DecodeGraphs"] = None) -> np.ndarray:
     """Greedy or temperature generation on the weights' device. ids, mask:
     [B, L] (left-aligned prompts; numpy or tensors). Returns [B,
     max_new_tokens] int32 on the host.
@@ -399,6 +421,12 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
     drawn from softmax(logit / T) with a torch.Generator seeded by `seed`,
     which cannot match JAX's random draws token for token.
 
+    `graphs` (a `DecodeGraphs` over these weights, which `ChatModel`
+    holds on the card) serves a greedy call over one tree: the prefill
+    writes its persistent cache and every decode step is one replay of a
+    captured graph (on the CPU, the same static step run eagerly). A tp
+    list or temperature > 0 keeps the loop above.
+
     params may be a list of `decoder_tp_split` trees: each tp position
     then keeps its slice of the cache and its vocab slice of the logits.
     A greedy pick takes each slice's max and its global index, then the
@@ -408,13 +436,25 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
 
     Host spans (internals/tracing.py, while HOST_SPANS): `decoder.prefill`
     (the host enqueueing the prefill and the first pick), one
-    `decoder.decode` a step, `decoder.readback` (the one copy to the
-    host, where the host waits for the card), and `decoder.first_token`,
-    from the call's start to the moment the card finished the first pick.
-    On the card that moment is read from two CUDA events after the
-    readback, which adds no synchronisation: the readback's end less the
-    card's time from the first pick to the last step. On the CPU it is
-    the end of `decoder.prefill`."""
+    `decoder.decode` a step (with graphs, the host enqueueing one replay:
+    `decoder.graph_replay` inside it, and `decoder.graph_capture` where
+    the step's graph was first made), `decoder.readback` (the one copy to
+    the host, where the host waits for the card), and
+    `decoder.first_token`, from the call's start to the moment the card
+    finished the first pick. On the card that moment is read from two
+    CUDA events after the readback, which adds no synchronisation: the
+    readback's end less the card's time from the first pick to the last
+    step. On the CPU it is the end of `decoder.prefill`."""
+    if graphs is not None and not isinstance(params, list) and temperature == 0.0:
+        with graphs.lock:
+            return _generate(params, config, ids, mask, max_new_tokens, temperature, seed, graphs)
+    return _generate(params, config, ids, mask, max_new_tokens, temperature, seed, None)
+
+
+def _generate(params, config: DecoderConfig, ids, mask, max_new_tokens: int,
+              temperature: float, seed: int, graphs) -> np.ndarray:
+    """`generate_tokens`' body; `graphs` is None or engaged (one tree,
+    greedy) and held by this call."""
     spans = _tracing.HOST_SPANS
     t_call = time.perf_counter() if spans else 0.0
     b, l = np.shape(ids)
@@ -429,8 +469,12 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
     events = spans and device.type == "cuda"
     ids = _to_device_ints(ids, device).long()
     mask = _to_device_ints(mask, device).long()
-    # the head in f32 once, not once per step (the same product)
-    shards = [dict(tree, lm_head=tree.get("lm_head", tree["embed"]).float()) for tree in shards]
+    if graphs is not None:
+        shards = [dict(params, lm_head=graphs.head)]
+    else:
+        # the head in f32 once, not once per step (the same product)
+        shards = [dict(tree, lm_head=tree.get("lm_head", tree["embed"]).float())
+                  for tree in shards]
     gen = None
     if temperature != 0.0:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -457,8 +501,12 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
     with torch.no_grad():
         positions = mask.cumsum(dim=1) - 1
         lengths = mask.sum(dim=1)
-        caches = [init_kv_cache(config, b, tree["ln_f"].device, tp=len(shards)) for tree in shards]
-        kv_valid = torch.zeros((b, config.max_len), dtype=torch.int32, device=device)
+        if graphs is not None:
+            caches, kv_valid = [graphs.cache_for(b)], graphs.kv_valid[:b]
+        else:
+            caches = [init_kv_cache(config, b, tree["ln_f"].device, tp=len(shards))
+                      for tree in shards]
+            kv_valid = torch.zeros((b, config.max_len), dtype=torch.int32, device=device)
         kv_valid[:, :l] = mask
         logits = forward(ids, mask, positions=positions,
                          kv_cache=caches if len(shards) > 1 else caches[0],
@@ -471,17 +519,30 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
         if spans:
             t_step = t_first = time.perf_counter()
             _tracing.record_span("decoder.prefill", t_call, t_first - t_call, b)
-        toks = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
-        ones = torch.ones((b, 1), dtype=torch.int64, device=device)
-        for t in range(max_new_tokens):
-            toks[:, t] = tok
-            if t == max_new_tokens - 1:
-                break  # the JAX scan's last step feeds a token it never returns
-            kv_valid[:, l + t] = 1
-            logits = forward(tok[:, None], ones, positions=(lengths + t)[:, None],
-                             kv_cache=caches if len(shards) > 1 else caches[0],
-                             kv_valid=kv_valid, slot_offset=l + t)
-            tok = sample([lg[:, 0] for lg in logits])
+        if graphs is not None:
+            graphs.seat(b, l, tok, lengths)
+            toks = graphs.out[:b, l : l + max_new_tokens]
+
+            def step(t: int) -> None:
+                graphs.step(b, l + t)
+        else:
+            toks = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
+            toks[:, 0] = tok
+            ones = torch.ones((b, 1), dtype=torch.int64, device=device)
+
+            def step(t: int) -> None:
+                nonlocal tok
+                kv_valid[:, l + t] = 1
+                logits = forward(tok[:, None], ones, positions=(lengths + t)[:, None],
+                                 kv_cache=caches if len(shards) > 1 else caches[0],
+                                 kv_valid=kv_valid, slot_offset=l + t)
+                tok = sample([lg[:, 0] for lg in logits])
+                toks[:, t + 1] = tok
+
+        # max_new_tokens - 1 steps: the JAX scan's last step feeds a token it
+        # never returns
+        for t in range(max_new_tokens - 1):
+            step(t)
             if spans:
                 t_next = time.perf_counter()
                 _tracing.record_span("decoder.decode", t_step, t_next - t_step, b)
@@ -500,3 +561,135 @@ def generate_tokens(params, config: DecoderConfig, ids, mask, *,
     first = t_done - first_pick.elapsed_time(last_step) / 1e3 if events else t_first
     _tracing.record_span("decoder.first_token", t_call, first - t_call, b)
     return out.numpy().astype(np.int32)
+
+
+# A captured decode step attends over the cache slots [0, bucket): the
+# slot count rounded up to a multiple of this, capped at max_len. One graph
+# serves every step of a bucket; a call of 32 new tokens crosses at most one
+# boundary.
+DECODE_BUCKET = 512
+
+
+def decode_bucket(slots: int, max_len: int) -> int:
+    """The slots a static step attends over when `slots` may be live."""
+    return min(-(-slots // DECODE_BUCKET) * DECODE_BUCKET, max_len)
+
+
+class DecodeGraphs:
+    """Greedy decode steps over one tree of weights as replays of
+    captured CUDA graphs, on buffers whose addresses never change
+    (`generate_tokens(..., graphs=)`; `ChatModel` holds one on the card).
+
+    It owns the KV storage, per layer k and v [B_max, KVH, max_len, hd]
+    for the largest batch seen (a call of B rows takes the views [:B]; a
+    larger batch regrows it and drops every graph), kv_valid [B_max,
+    max_len], the f32 head, made once, and a step's device buffers: the
+    token and position [B_max], the slot [1] and the tokens out [B_max,
+    max_len], indexed by slot. A call's prefill writes the storage
+    eagerly, after kv_valid[:B] is cleared, so a slot an earlier call left
+    is dead.
+
+    A step (`_step`) attends over the slots [0, bucket) (`decode_bucket`),
+    its mask made on the device from kv_valid and the slot; it writes K,
+    V and kv_valid at the device slot, picks the argmax with the head in
+    full f32, writes the token out, and advances the position and the
+    slot. The host knows the slot, so it picks the (batch, bucket) graph
+    without a sync. A graph is captured the first time its pair comes up:
+    one eager pass of the same step on the capture stream first (its
+    token, position and slot are put back; the replay writes the rest
+    again), then the capture, in thread_local mode so the server's other
+    threads may use the card meanwhile. Every graph shares one memory
+    pool; whatever a later step reads lives outside it.
+
+    Without a card (no graphs) `step` runs `_step` eagerly: the tests
+    hold it to the eager loop there. One call at a time (`lock`)."""
+
+    def __init__(self, params, config: DecoderConfig):
+        self.params = params
+        self.config = config
+        self.device = params["ln_f"].device
+        self.head = params.get("lm_head", params["embed"]).float()
+        self.lock = threading.Lock()
+        self.rows = 0
+        self.cache: List[Dict[str, torch.Tensor]] = []
+        self.graphs: Dict[tuple, Any] = {}
+        self._pool = None
+        self._stream = None
+
+    def cache_for(self, b: int) -> List[Dict[str, torch.Tensor]]:
+        """Rows [:b] of the storage (grown to b rows first), kv_valid[:b]
+        cleared: the cache a call's prefill writes."""
+        if b > self.rows:
+            self.graphs.clear()  # they address the storage let go here
+            self._pool = None
+            self.cache = []  # the old storage goes before the new is made
+            cfg, dev = self.config, self.device
+            self.cache = init_kv_cache(cfg, b, dev)
+            self.kv_valid = torch.zeros((b, cfg.max_len), dtype=torch.int32, device=dev)
+            self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
+            self.pos = torch.zeros_like(self.tok)
+            self.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+            self.out = torch.zeros((b, cfg.max_len), dtype=torch.int64, device=dev)
+            self.rows = b
+        self.kv_valid[:b].zero_()
+        return [{"k": c["k"][:b], "v": c["v"][:b]} for c in self.cache]
+
+    def seat(self, b: int, l: int, tok, lengths) -> None:
+        """The prefill's pick as the first step's input: token `tok` at
+        slot l, position `lengths` (each row's prompt length)."""
+        self.tok[:b] = tok
+        self.pos[:b] = lengths
+        self.slot.fill_(l)
+        self.out[:b, l] = tok
+
+    def step(self, b: int, slot: int) -> None:
+        """One step over rows [:b] at `slot`: a replay on the card."""
+        bucket = decode_bucket(slot + 1, self.config.max_len)
+        if self.device.type != "cuda":
+            self._step(b, bucket)
+            return
+        graph = self.graphs.get((b, bucket))
+        if graph is None:
+            graph = self.graphs[(b, bucket)] = self._capture(b, bucket)
+        spans = _tracing.HOST_SPANS
+        t0 = time.perf_counter() if spans else 0.0
+        graph.replay()
+        if spans:
+            _tracing.record_span("decoder.graph_replay", t0, time.perf_counter() - t0, b)
+
+    def _step(self, b: int, bucket: int) -> None:
+        kv_valid = self.kv_valid[:b]
+        kv_valid.index_fill_(1, self.slot, 1)
+        logits, _ = decoder_forward(
+            dict(self.params, lm_head=self.head), self.config, self.tok[:b, None], None,
+            positions=self.pos[:b, None], kv_valid=kv_valid, slot_offset=self.slot, end=bucket,
+            kv_cache=[{"k": c["k"][:b], "v": c["v"][:b]} for c in self.cache])
+        nxt = logits[:, 0].argmax(dim=-1)
+        self.out[:b].index_copy_(1, self.slot + 1, nxt[:, None])
+        self.tok[:b] = nxt
+        self.pos[:b].add_(1)
+        self.slot.add_(1)
+
+    def _capture(self, b: int, bucket: int):
+        spans = _tracing.HOST_SPANS
+        t0 = time.perf_counter() if spans else 0.0
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        state = (self.tok, self.pos, self.slot)
+        with torch.cuda.stream(self._stream):
+            saved = [x.clone() for x in state]
+            self._step(b, bucket)
+            for x, s in zip(state, saved):
+                x.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._step(b, bucket)
+        current.wait_stream(self._stream)
+        if spans:
+            _tracing.record_span("decoder.graph_capture", t0, time.perf_counter() - t0, b)
+        return graph

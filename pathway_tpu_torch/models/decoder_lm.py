@@ -23,6 +23,7 @@ from pathway_tpu_torch.models import hf_loader
 from pathway_tpu_torch.models.decoder import (
     MISTRAL_7B_DECODER,
     TINY,
+    DecodeGraphs,
     DecoderConfig,
     generate_tokens,
     init_decoder_params,
@@ -36,7 +37,11 @@ class ChatModel:
     """KV-cached decoder (models/decoder.py): one prefill through the flash
     kernel, then decode steps on the device with no host round trip per
     token. `device=None` means the CUDA card and raises without one;
-    `device="cpu"` runs the plain path.
+    `device="cpu"` runs the plain path. On the card a greedy call decodes
+    through the model's one `DecodeGraphs` over its current weights
+    (`decode_graphs`, made at the first call and again after `params` is
+    replaced): a persistent cache and one captured graph a (batch, bucket),
+    replayed a token.
 
     The default max_len=128 keeps every prompt under the flash gate
     (L > 256), as in the JAX package; pass a larger max_len to prefill
@@ -77,6 +82,7 @@ class ChatModel:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_decoder_params(gen, config, self.device)
         self.params = params
+        self.decode_graphs: DecodeGraphs | None = None
 
     @classmethod
     def cached(cls, model: str = "tiny-decoder", **kw) -> "ChatModel":
@@ -126,6 +132,7 @@ class ChatModel:
         tokens = generate_tokens(
             self.params, self.config, ids, mask,
             max_new_tokens=max_new_tokens, temperature=temperature,
+            graphs=self._graphs(),
         )
         if spans:
             t2 = time.perf_counter()
@@ -135,6 +142,15 @@ class ChatModel:
             _tracing.record_span("llm.detokenize", t2, t3 - t2, len(prompts))
             _tracing.record_span("llm.generate", t0, t3 - t0, len(prompts))
         return out
+
+    def _graphs(self) -> DecodeGraphs | None:
+        """The DecodeGraphs over the current `params`, on the card only."""
+        if self.device.type != "cuda":
+            return None
+        if self.decode_graphs is None or self.decode_graphs.params is not self.params:
+            self.decode_graphs = None  # its storage goes before the new one's
+            self.decode_graphs = DecodeGraphs(self.params, self.config)
+        return self.decode_graphs
 
 
 def _to_device(tree, device):

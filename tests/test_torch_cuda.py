@@ -22,8 +22,13 @@ Decoder (head dims 128 and 256): f32 logits atol 1e-4 and the same greedy
 tokens, bf16 per-position logit cosine >= 0.999. The data-plane mesh on
 ["cuda:0"] * n against the same mesh over ["cpu"] * n: the sharded index's
 slots equal, its scores as knn's, at least 99 % of the live slots equal
-(near-ties); tensor-parallel decode's greedy tokens equal.
+(near-ties); tensor-parallel decode's greedy tokens equal. Decode graphs:
+the replayed greedy tokens equal the eager loop's.
 """
+
+import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -557,6 +562,39 @@ def test_cross_encoder_on_card_matches_cpu(card, dtype):
     np.testing.assert_allclose(
         got, cpu.score(pairs), atol=1e-4 if dtype == "float32" else 1e-3, rtol=0
     )
+
+
+def test_decode_graphs_replay_what_the_eager_loop_decodes(card):
+    """Mistral-7B widths, 4 layers, bf16: a greedy decode of prompts of
+    up to 500 tokens across the bucket boundary at slot 512, as captured
+    graphs replayed, gives the eager loop's tokens; one capture per
+    (batch, bucket) touched and one replay per decode step (the host-span
+    ring), and a second call captures nothing new."""
+    from pathway_tpu_torch.internals import tracing
+
+    config = dataclasses.replace(dec.MISTRAL_7B_DECODER, layers=4, max_len=2048)
+    params = dec.init_decoder_params(torch.Generator(device=card).manual_seed(0), config)
+    rng = np.random.default_rng(0)
+    lengths = (500, 480, 311, 497)
+    ids = np.zeros((len(lengths), max(lengths)), dtype=np.int32)
+    mask = np.zeros_like(ids)
+    for r, n in enumerate(lengths):
+        ids[r, :n] = rng.integers(1, config.vocab_size, size=n)
+        mask[r, :n] = 1
+    new, l = 24, ids.shape[1]
+    buckets = {dec.decode_bucket(l + t + 1, config.max_len) for t in range(new - 1)}
+    assert buckets == {512, 1024}
+    want = dec.generate_tokens(params, config, ids, mask, max_new_tokens=new)
+    graphs = dec.DecodeGraphs(params, config)
+    thread = threading.current_thread().name
+    for call in range(2):
+        t0 = time.perf_counter()
+        got = dec.generate_tokens(params, config, ids, mask, max_new_tokens=new, graphs=graphs)
+        np.testing.assert_array_equal(got, want)
+        names = [r[0] for r in tracing.spans_between(t0, time.perf_counter()) if r[4] == thread]
+        assert names.count("decoder.graph_capture") == (len(buckets) if call == 0 else 0)
+        assert names.count("decoder.graph_replay") == names.count("decoder.decode") == new - 1
+    assert sorted(graphs.graphs) == [(len(lengths), b) for b in sorted(buckets)]
 
 
 def test_hf_pipeline_chat_on_card_matches_cpu(card):

@@ -12,6 +12,7 @@ at most 512 terms taken in another order by XLA and by torch); greedy
 tokens identical.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -161,6 +162,17 @@ def test_greedy_tokens_match_jax(model):
     want = jdec.generate_tokens(jparams, jcfg, ids, mask, max_new_tokens=6)
     got = dec.generate_tokens(tparams, tcfg, ids, mask, max_new_tokens=6)
     assert got.dtype == np.int32 and got.shape == (3, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_static_decode_tokens_match_jax(model):
+    """The static decode step (`DecodeGraphs`, uncaptured on the CPU)
+    picks the JAX package's greedy tokens."""
+    jcfg, tcfg, jparams, tparams = model
+    ids, mask = _prompts(tcfg.vocab_size, (5, 9, 3), seed=4)
+    want = jdec.generate_tokens(jparams, jcfg, ids, mask, max_new_tokens=6)
+    got = dec.generate_tokens(tparams, tcfg, ids, mask, max_new_tokens=6,
+                              graphs=dec.DecodeGraphs(tparams, tcfg))
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
@@ -427,3 +439,123 @@ def test_fast_tokenizer_matches_jax_and_chat_model_picks_it(tmp_path):
     chat = ChatModel(path, max_len=16, device="cpu")
     assert isinstance(chat.tokenizer, FastTokenizer)
     assert len(chat.generate(["the quick brown"], max_new_tokens=3)) == 1
+
+
+# -- the static decode step (DecodeGraphs) against the eager loop ----------------------
+#
+# On the card DecodeGraphs replays captured graphs of the static step; here
+# the same step runs eagerly, with the same static shapes: it attends over a
+# bucket of slots (multiples of 512, so these configs' max_len of 1,100 makes
+# the buckets 512 and 1,024 ... 1,100), its slot a device tensor. Masked
+# slots weigh exactly 0, so only the order of the sums differs from the
+# eager loop: f32 logits within 1e-5; in bf16 a product rounded the other
+# way moves them by about one bf16 step (2^-7 at magnitude 1); tokens equal.
+
+STATIC = {
+    "tiny": dataclasses.replace(dec.TINY, max_len=1100),
+    "bf16x4": dec.DecoderConfig(vocab_size=512, hidden=64, layers=4, q_heads=4, kv_heads=2,
+                                mlp_dim=128, max_len=1100, dtype="bfloat16"),
+}
+# batch 1, 3 and 16; the two longer sets decode across slot 512
+STATIC_LENGTHS = {"b1": (9,), "b3-across": (500, 3, 505), "b16-across": tuple(range(490, 506))}
+
+
+@pytest.fixture(scope="module", params=sorted(STATIC))
+def static_model(request):
+    config = STATIC[request.param]
+    return config, dec.init_decoder_params(torch.Generator().manual_seed(0), config)
+
+
+@pytest.mark.parametrize("lengths", sorted(STATIC_LENGTHS))
+def test_static_decode_generates_what_the_eager_loop_does(static_model, lengths):
+    config, params = static_model
+    ids, mask = _prompts(config.vocab_size, STATIC_LENGTHS[lengths], seed=len(lengths))
+    new = 16
+    want = dec.generate_tokens(params, config, ids, mask, max_new_tokens=new)
+    graphs = dec.DecodeGraphs(params, config)
+    got = dec.generate_tokens(params, config, ids, mask, max_new_tokens=new, graphs=graphs)
+    np.testing.assert_array_equal(got, want)
+    l = ids.shape[1]
+    buckets = {dec.decode_bucket(l + t + 1, config.max_len) for t in range(new - 1)}
+    assert len(buckets) == (2 if lengths.endswith("across") else 1)
+    assert graphs.rows == len(ids) and not graphs.graphs  # nothing captured on the CPU
+
+
+@pytest.mark.parametrize("lengths", sorted(STATIC_LENGTHS))
+def test_static_decode_step_logits_match_the_eager_step(static_model, lengths):
+    """Step by step on one prefilled cache: the static step (a device
+    slot, the bucket's slots) against the eager step (a host slot, the
+    slots up to it), logits and cache within 1e-5 in f32 (2^-7 in bf16).
+    The static step's copy holds garbage, marked valid, in the slots past
+    its own: they must stay dead."""
+    config, params = static_model
+    tol = dict(atol=1e-5, rtol=0) if config.dtype == "float32" else dict(atol=2**-7, rtol=2**-7)
+    ids, mask = (torch.from_numpy(a).long()
+                 for a in _prompts(config.vocab_size, STATIC_LENGTHS[lengths], seed=2))
+    b, l = ids.shape
+    cache = dec.init_kv_cache(config, b)
+    kv_valid = torch.zeros((b, config.max_len), dtype=torch.int32)
+    kv_valid[:, :l] = mask
+    lengths_ = mask.sum(1)
+    with torch.no_grad():
+        dec.decoder_forward(params, config, ids, mask, positions=mask.cumsum(1) - 1,
+                            kv_cache=cache, kv_valid=kv_valid)
+        tok = ids[:, :1]
+        for t in range(12):
+            kv_valid[:, l + t] = 1
+            static = [{k: x.clone() for k, x in layer.items()} for layer in cache]
+            for layer in static:
+                for x in layer.values():
+                    x[:, :, l + t + 1 :] = torch.randn(x[:, :, l + t + 1 :].shape)
+            stale = kv_valid.clone()
+            stale[:, l + t + 1 :] = 1
+            positions = (lengths_ + t)[:, None]
+            want, _ = dec.decoder_forward(params, config, tok, torch.ones_like(tok),
+                                          positions=positions, kv_cache=cache,
+                                          kv_valid=kv_valid, slot_offset=l + t)
+            got, _ = dec.decoder_forward(params, config, tok, torch.ones_like(tok),
+                                         positions=positions, kv_cache=static, kv_valid=stale,
+                                         slot_offset=torch.tensor([l + t]),
+                                         end=dec.decode_bucket(l + t + 1, config.max_len))
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+            for a, c in zip(cache, static):
+                for k in ("k", "v"):
+                    np.testing.assert_allclose(c[k][:, :, : l + t + 1].float().numpy(),
+                                               a[k][:, :, : l + t + 1].float().numpy(), **tol)
+            tok = want[:, 0].argmax(-1)[:, None]
+
+
+def test_decode_graphs_keep_one_storage_and_stale_slots_dead(static_model):
+    """Consecutive calls of other batches and lengths on one DecodeGraphs:
+    its storage grows to the largest batch and is then reused in place,
+    and slots an earlier, longer call wrote stay dead in a later one."""
+    config, params = static_model
+    graphs = dec.DecodeGraphs(params, config)
+    calls = [(500, 3, 505), tuple(range(490, 506)), (40, 7, 12), (300,) * 2, (1000, 990, 3)]
+    pointers = []
+    for i, lengths in enumerate(calls):
+        ids, mask = _prompts(config.vocab_size, lengths, seed=10 + i)
+        want = dec.generate_tokens(params, config, ids, mask, max_new_tokens=8)
+        got = dec.generate_tokens(params, config, ids, mask, max_new_tokens=8, graphs=graphs)
+        np.testing.assert_array_equal(got, want, err_msg=str(i))
+        # live: each row's prompt, then the slots of the 7 decode steps
+        l = ids.shape[1]
+        live = np.concatenate([mask, np.ones((len(ids), 7), np.int32),
+                               np.zeros((len(ids), config.max_len - l - 7), np.int32)], axis=1)
+        np.testing.assert_array_equal(graphs.kv_valid[: len(ids)].numpy(), live, err_msg=str(i))
+        pointers.append(graphs.cache[0]["k"].data_ptr())
+    assert graphs.rows == 16
+    assert pointers[0] != pointers[1] and len(set(pointers[1:])) == 1
+
+
+def test_static_decode_leaves_tp_lists_and_sampling_to_the_eager_loop(static_model):
+    """A sampled call ignores the graphs: the same draws as without them,
+    and the storage never made."""
+    config, params = static_model
+    graphs = dec.DecodeGraphs(params, config)
+    ids, mask = _prompts(config.vocab_size, (5, 9), seed=6)
+    kw = dict(max_new_tokens=5, temperature=0.8, seed=3)
+    np.testing.assert_array_equal(
+        dec.generate_tokens(params, config, ids, mask, graphs=graphs, **kw),
+        dec.generate_tokens(params, config, ids, mask, **kw))
+    assert graphs.rows == 0

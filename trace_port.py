@@ -50,7 +50,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def _busy_us(prof) -> tuple[float | None, list]:
+def _busy_us(prof, top_n: int = 5) -> tuple[float | None, list]:
     """Union of the CUDA kernel intervals, and the top kernels by time."""
     from torch.autograd import DeviceType
 
@@ -69,11 +69,12 @@ def _busy_us(prof) -> tuple[float | None, list]:
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return busy, [{"kernel": n[:80], "ms": us / 1e3} for n, us in top]
 
 
-def trace(name: str, run, device: torch.device, host_ms: float | None = None) -> dict:
+def trace(name: str, run, device: torch.device, host_ms: float | None = None,
+          top_n: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from pathway_tpu_torch.internals.profiler import exclusive
@@ -89,7 +90,7 @@ def trace(name: str, run, device: torch.device, host_ms: float | None = None) ->
         run()
         _sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy, top = _busy_us(prof) if device.type == "cuda" else (None, [])
+    busy, top = _busy_us(prof, top_n) if device.type == "cuda" else (None, [])
     row = {
         "phase": name,
         "wall_ms": wall_us / 1e3,
@@ -102,6 +103,14 @@ def trace(name: str, run, device: torch.device, host_ms: float | None = None) ->
     return row
 
 
+def _print_card(device: torch.device) -> None:
+    if device.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0], flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -109,20 +118,23 @@ def main() -> int:
     ap.add_argument("--index-rows", type=int, default=1 << 20)
     ap.add_argument("--decoder", choices=("mistral-7b", "tiny"), default="mistral-7b",
                     help="the decoder's geometry (tiny for a rehearsal)")
+    ap.add_argument("--only", choices=("decode-graphs",),
+                    help="run this phase alone: decode-graphs, the RAG cell's decode step "
+                         "eager and as graph replays")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("trace_port: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.only == "decode-graphs":
+        _print_card(device)
+        trace_decode_graphs(args.decoder, device)
+        return 0
     from pathway_tpu_torch.models.minilm import SentenceEncoder
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex, FusedEmbedSearch
 
-    if device.type == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0], flush=True)
+    _print_card(device)
     rng = random.Random(SEED)
     docs = [" ".join(rng.choices(_WORDS, k=48)) + f" doc{i}" for i in range(args.docs)]
     encoder = SentenceEncoder("all-MiniLM-L6-v2", max_len=64, seed=SEED, device=device)
@@ -265,6 +277,101 @@ def trace_decoder(model: str, device: torch.device) -> None:
                                     kv_valid=kv_valid, slot_offset=l + t)
 
         trace(f"decoder decode, 8 steps at batch {b}", decode, device)
+
+
+def trace_decode_graphs(model: str, device: torch.device) -> None:
+    """The RAG cell's decode step: batch 16, prompts of about 2,750 tokens,
+    32 new tokens. One JSON line each for the eager step and the step as
+    graph replays (`DecodeGraphs`): host ms a step (the `decoder.decode`
+    spans), the step's ms in a generate call ((call of 25 tokens - call of
+    1) / 24, ending in the readback), the capture's ms (`decoder.graph_capture`)
+    and the graphs held; one for buckets of 512 slots against 256 (512,
+    256, 256, 512 in turn); then the profiler's split of 8 replays, and the
+    parts of the step named for the next change, each alone with CUDA
+    events: `_cache_attention`'s f32 copy of the cache (32 layers at the
+    bucket) and the head's f32 product."""
+    import gc
+    import threading
+
+    from pathway_tpu_torch.internals import tracing
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models.decoder_lm import ChatModel
+
+    config, words, new = None, (2500, 2750), 25
+    if model == "tiny":
+        config = dec.DecoderConfig(vocab_size=512, hidden=64, layers=2, q_heads=4, kv_heads=2,
+                                   mlp_dim=128, max_len=1200, dtype="bfloat16")
+        words = (600, 760)
+    chat = ChatModel(model, config=config, max_len=4096, seed=SEED, device=device)
+    cfg, params = chat.config, chat.params
+    rng = random.Random(13)
+    prompts = [" ".join(rng.choices(_WORDS, k=rng.randint(*words))) for _ in range(16)]
+    ids, mask = chat.encode_prompts(prompts, 32)
+    b, l = ids.shape
+    thread = threading.current_thread().name
+
+    def call(n: int, graphs=None):
+        """(seconds, this thread's ring spans) of one generate call."""
+        t0 = time.perf_counter()
+        dec.generate_tokens(params, cfg, ids, mask, max_new_tokens=n, graphs=graphs)
+        t1 = time.perf_counter()
+        return t1 - t0, [r for r in tracing.spans_between(t0, t1) if r[4] == thread]
+
+    def ms(recs, name):
+        d = [r[2] * 1e3 for r in recs if r[0] == name]
+        return sum(d) / len(d) if d else None
+
+    def step_row(name: str, graphs=None) -> dict:
+        warm, warm_spans = call(new, graphs)  # captures, where graphs
+        one = min(call(1, graphs)[0] for _ in range(3))
+        walls, recs = zip(*(call(new, graphs) for _ in range(3)))
+        row = {"phase": name, "batch": b, "prompt_len": l,
+               "bucket": dec.decode_bucket(l + new, cfg.max_len),
+               "host_ms_per_step": ms([r for rs in recs for r in rs], "decoder.decode"),
+               "call_ms": 1e3 * min(walls), "prefill_call_ms": 1e3 * one,
+               "step_ms": 1e3 * (min(walls) - one) / (new - 1),
+               "capture_ms": ms(warm_spans, "decoder.graph_capture"),
+               "graphs_held": None if graphs is None else len(graphs.graphs)}
+        print(json.dumps(row), flush=True)
+        return row
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    step_row("decode step, eager")
+    graphs = dec.DecodeGraphs(params, cfg)
+    step_row("decode step, graph replays", graphs)
+    bucket = dec.decode_bucket(l + new, cfg.max_len)
+    trace(f"decode graph replays, 8 steps at [{b}, {l}] bucket {bucket}",
+          lambda: [graphs.step(b, l + 1) for _ in range(8)], device, top_n=12)
+    if device.type == "cuda":
+        cache = graphs.cache
+
+        def event_ms(run, reps: int = 10) -> float:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            run()
+            start.record()
+            for _ in range(reps):
+                run()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+
+        x = torch.randn((b, cfg.hidden), device=device, dtype=torch.bfloat16)
+        with torch.no_grad(), dec._full_f32_matmul():
+            parts = {"f32_cache_copy_ms_per_step": event_ms(
+                         lambda: [c["k"][:b, :, :bucket].float() for c in cache]),
+                     "f32_head_ms_per_step": event_ms(lambda: x.float() @ graphs.head.T)}
+        print(json.dumps({"phase": "parts of the replayed step", "bucket": bucket, **parts}),
+              flush=True)
+    del graphs
+    rows = []
+    for size in (512, 256, 256, 512):
+        gc.collect()
+        dec.DECODE_BUCKET = size
+        rows.append(step_row(f"decode step, graph replays, buckets of {size}",
+                             dec.DecodeGraphs(params, cfg)))
+    dec.DECODE_BUCKET = 512
 
 
 if __name__ == "__main__":
